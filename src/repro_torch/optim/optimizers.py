@@ -1,0 +1,120 @@
+"""Optimizers as pure functions on params trees (dicts of tensors).
+
+Functional API mirroring optax: ``init(params) -> state``,
+``update(grads, state, params) -> (updates, state)``; apply with
+``apply_updates``.  Adam is written out as the JAX reference writes it
+(fp32 moments, bias corrections taken in fp32) rather than through
+``torch.optim.Adam``, whose rounding differs.
+
+FedProx support: `proximal_grad` adds mu * (w - w_global) to the gradient,
+which is the gradient of the paper's proximal term mu/2 ||w - w_global||^2.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from ..core.flatten import tree_leaves, tree_map
+
+Pytree = Any
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Pytree], Pytree]
+    update: Callable[[Pytree, Pytree, Pytree], Tuple[Pytree, Pytree]]
+
+
+def apply_updates(params: Pytree, updates: Pytree) -> Pytree:
+    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+def zeros_like_f32(params: Pytree) -> Pytree:
+    """fp32 moment buffers shaped like `params` (mixed-precision training
+    and the server-side merge pipeline keep fp32 optimizer state even
+    when the params themselves are lower precision)."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+# --------------------------------------------------------------------------
+def sgd(learning_rate: float, momentum: float = 0.0) -> Optimizer:
+    """SGD, optionally with heavy-ball momentum. State: (count, velocity?)."""
+
+    def init(params):
+        if momentum == 0.0:
+            return {"count": 0}
+        return {"count": 0, "velocity": zeros_like_f32(params)}
+
+    def update(grads, state, params=None):
+        del params
+        if momentum == 0.0:
+            updates = tree_map(lambda g: -learning_rate * g.float(), grads)
+            return updates, {"count": state["count"] + 1}
+        vel = tree_map(lambda v, g: momentum * v + g.float(),
+                       state["velocity"], grads)
+        updates = tree_map(lambda v: -learning_rate * v, vel)
+        return updates, {"count": state["count"] + 1, "velocity": vel}
+
+    return Optimizer(init, update)
+
+
+# --------------------------------------------------------------------------
+def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8, weight_decay: float = 0.0) -> Optimizer:
+    """Adam / AdamW (decoupled weight decay when weight_decay > 0).
+
+    m/v accumulators are fp32 regardless of param dtype.  The step count
+    is a host integer, so the bias corrections cost no device sync.
+    """
+
+    def init(params):
+        return {"count": 0, "m": zeros_like_f32(params),
+                "v": zeros_like_f32(params)}
+
+    def update(grads, state, params):
+        count = state["count"] + 1
+        cf = np.float32(count)
+        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
+                     state["m"], grads)
+        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(
+            g.float()), state["v"], grads)
+        bc1 = float(np.float32(1) - np.float32(b1) ** cf)
+        bc2 = float(np.float32(1) - np.float32(b2) ** cf)
+
+        def step(m_, v_, p):
+            upd = -learning_rate * (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+            if weight_decay:
+                upd = upd - learning_rate * weight_decay * p.float()
+            return upd
+
+        updates = tree_map(step, m, v, params)
+        return updates, {"count": count, "m": m, "v": v}
+
+    return Optimizer(init, update)
+
+
+OPTIMIZERS = {"sgd": sgd, "adam": adam}
+
+
+def make_optimizer(name: str, learning_rate: float, **kw) -> Optimizer:
+    try:
+        return OPTIMIZERS[name](learning_rate, **kw)
+    except KeyError:
+        raise ValueError(f"unknown optimizer {name!r}") from None
+
+
+# --------------------------------------------------------------------------
+def proximal_grad(grads: Pytree, params: Pytree, global_params: Pytree,
+                  mu: float) -> Pytree:
+    """FedProx: grad += mu * (w - w_global)  (gradient of mu/2||w - w_g||²)."""
+    if mu == 0.0:
+        return grads
+    return tree_map(lambda g, p, gp: g + mu * (p - gp).to(g.dtype),
+                    grads, params, global_params)
+
+
+def global_norm(tree: Pytree) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(l.float()))
+                          for l in tree_leaves(tree)))

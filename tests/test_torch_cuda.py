@@ -1,0 +1,85 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+No JAX here: this file runs on the GPU machine
+(``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``)
+and skips where there is no card.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.fed_agg import (APPLY_OPTS, fed_agg, fed_agg_apply,
+                                         fed_agg_apply_plain, fed_agg_plain)
+
+HYPER = (0.1, 0.8, 0.9, 0.99, 1e-3)          # lr, mix, b1, b2, eps
+BF16_ULP = 2.0 ** -7                          # bf16 keeps 8 significant bits
+
+
+def _inputs(K, P, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(K, P)).astype(np.float32),
+            rng.random(K).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    u, c = _inputs(8, 100_003, seed=5)
+    u_d = torch.from_numpy(u).to("cuda", dtype)
+    c_d = torch.from_numpy(c).cuda()
+    before = fed_agg.launches
+    got = fed_agg(u_d, c_d)
+    torch.cuda.synchronize()
+    assert fed_agg.launches == before + 1
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32
+           else dict(rtol=BF16_ULP, atol=1e-6))
+    torch.testing.assert_close(got, fed_agg_plain(u_d, c_d), **tol)
+    P = u.shape[1]
+    g, m, v = (torch.rand(P, device="cuda") for _ in range(3))
+    for opt in APPLY_OPTS:
+        got = fed_agg_apply(u_d, c_d, g, m, v, *HYPER, opt=opt)
+        want = fed_agg_apply_plain(u_d, c_d, g, m, v, *HYPER, opt=opt)
+        torch.cuda.synchronize()
+        for t, w in zip(got[:3], want[:3]):
+            torch.testing.assert_close(t, w, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_experiment_runs_on_card(tmp_path):
+    """A small FedLesScan run on the card goes through fed_agg and writes
+    the same virtual-time trace as the same run on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.data import label_sorted_shards, make_image_classification
+    from repro_torch.fl import experiment
+    from repro_torch.fl.tasks import ClassificationTask, TaskConfig
+    from repro_torch.models.small import make_cnn
+
+    full = make_image_classification(300, 14, 5, seed=0)
+    parts = label_sorted_shards(full, 4, 2)
+    traces = {}
+    for device in ("cpu", "cuda"):
+        task = ClassificationTask(make_cnn(14, 1, 5, 32),
+                                  TaskConfig(epochs=1, batch_size=32),
+                                  device=device)
+        cfg = experiment.ExperimentConfig(
+            strategy="fedlesscan", n_rounds=2, clients_per_round=3,
+            trace_path=str(tmp_path / f"{device}.jsonl"),
+            scenario=experiment.ScenarioConfig(straggler_fraction=0.25))
+        before = fed_agg.launches
+        params, res = experiment.run_experiment(
+            task, parts, None, cfg, initial_params=make_cnn(
+                14, 1, 5, 32).init(0), device=device, return_params=True)
+        merges = sum(1 for r in res.rounds if r.aggregated_updates)
+        assert merges > 0
+        assert fed_agg.launches - before == (0 if device == "cpu"
+                                             else merges)
+        for layer in params.values():
+            for leaf in layer.values():
+                assert leaf.device.type == device
+                assert bool(torch.isfinite(leaf).all())
+        traces[device] = (tmp_path / f"{device}.jsonl").read_bytes()
+    assert traces["cuda"] == traces["cpu"]
