@@ -6,6 +6,7 @@ from .aggregation import (ClientUpdate, RunningAggregator, UpdateStore,
 from .clustering import (ClusteringResult, calinski_harabasz,
                          calinski_harabasz_batch, cluster_clients, dbscan,
                          pairwise_sq_dists)
+from .compress import SCHEMES, CompressionConfig, UpdateCompressor
 from .features import (ema, ema_step, feature_matrix, missed_round_ema,
                        normalize01, total_ema, training_ema)
 from .flatten import flatten_params, tree_leaves, tree_map
@@ -20,7 +21,8 @@ __all__ = [
     "fedavg_coefficients", "flat_update_matrix", "staleness_aggregate",
     "staleness_coefficients", "ClusteringResult", "calinski_harabasz",
     "calinski_harabasz_batch", "cluster_clients", "dbscan",
-    "pairwise_sq_dists", "ema", "ema_step", "feature_matrix",
+    "pairwise_sq_dists", "SCHEMES", "CompressionConfig", "UpdateCompressor",
+    "ema", "ema_step", "feature_matrix",
     "missed_round_ema", "normalize01", "total_ema", "training_ema",
     "flatten_params", "tree_leaves", "tree_map", "ClientHistoryDB",
     "ClientRecord", "SERVER_OPTS", "MergePipeline", "ServerOptConfig",

@@ -30,7 +30,8 @@ class ClientPool:
     def __init__(self, task: ClassificationTask,
                  datasets: Dict[str, ArrayDataset],
                  test_datasets: Optional[Dict[str, ArrayDataset]] = None,
-                 proximal_mu: float = 0.0, seed: int = 0):
+                 proximal_mu: float = 0.0, seed: int = 0,
+                 compressor=None):
         self.task = task
         self.clients = {
             cid: ClientState(ds, (test_datasets or {}).get(cid))
@@ -38,6 +39,10 @@ class ClientPool:
         }
         self.proximal_mu = proximal_mu
         self.seed = seed
+        # optional core.compress.UpdateCompressor — when set, updates are
+        # encoded (top-k / int8 + error feedback) on the way out of local
+        # training and the ClientUpdate carries the simulated wire size
+        self.compressor = compressor
         # membership is fixed after construction, so the sorted id list is
         # computed once — callers (and the interners memoizing on list
         # identity) see one stable object instead of a fresh O(N log N)
@@ -58,6 +63,23 @@ class ClientPool:
         return zlib.crc32(
             f"{cid}:{round_number}:{self.seed}".encode()) % (2 ** 31)
 
+    def package_update(self, cid: str, params: Pytree,
+                       round_number: int,
+                       global_params: Pytree) -> ClientUpdate:
+        """Wrap trained params into the wire-format ClientUpdate: with a
+        compressor the params become the server-side decode and the
+        simulated payload/dense byte counts ride along; without one the
+        update is the plain dense tree (byte-identical dense path)."""
+        payload_bytes = dense_bytes = None
+        if self.compressor is not None:
+            params, payload_bytes, dense_bytes = self.compressor.encode(
+                cid, params, global_params)
+        return ClientUpdate(
+            client_id=cid, params=params,
+            num_samples=len(self.clients[cid].dataset),
+            round_number=round_number,
+            payload_bytes=payload_bytes, dense_bytes=dense_bytes)
+
     def work_fn(self, cid: str, global_params: Pytree,
                 round_number: int) -> Tuple[ClientUpdate, float]:
         """Client_Update body: train locally, return the update and the
@@ -66,7 +88,6 @@ class ClientPool:
         params, _loss = self.task.local_train(
             global_params, state.dataset, mu=self.proximal_mu,
             seed=self.client_seed(cid, round_number))
-        update = ClientUpdate(client_id=cid, params=params,
-                              num_samples=len(state.dataset),
-                              round_number=round_number)
+        update = self.package_update(cid, params, round_number,
+                                     global_params)
         return update, self.task.nominal_work_seconds(state.dataset)

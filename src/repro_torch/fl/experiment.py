@@ -18,6 +18,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..core.compress import CompressionConfig, UpdateCompressor
 from ..core.flatten import tree_map
 from ..core.history import ClientHistoryDB
 from ..core.strategies import StrategyConfig, make_strategy
@@ -105,8 +106,7 @@ class ExperimentConfig:
     # client update compression (core/compress.UpdateCompressor): "none"
     # (dense — byte-identical legacy traces), "topk" (top-k magnitude
     # sparsification of the delta), or "int8" (per-chunk-scaled int8
-    # quantization), with error-feedback residuals on by default;
-    # REPRO_COMPRESS=0 force-disables any scheme at run time
+    # quantization), with error-feedback residuals on by default
     compress_scheme: str = "none"
     compress_topk_ratio: float = 0.01
     compress_chunk: int = 256
@@ -162,8 +162,6 @@ def _unported(config: ExperimentConfig) -> Optional[str]:
     """The first knob of ``config`` whose slice is not ported yet, with
     its ROADMAP queue item, or None."""
     checks = (
-        (config.compress_scheme != "none",
-         "compress_scheme (update compression, ROADMAP Queue 1.6)"),
         (bool(config.merge_devices and config.merge_devices > 1),
          "merge_devices > 1 (sharded merge, ROADMAP Queue 1.8)"),
         (bool(config.executor_devices and config.executor_devices > 1),
@@ -226,8 +224,16 @@ def run_experiment(task: ClassificationTask,
                              seed=config.seed)
 
     recorder = TraceRecorder() if config.trace_path else None
+    compressor = None
+    if config.compress_scheme != "none":
+        compressor = UpdateCompressor(CompressionConfig(
+            scheme=config.compress_scheme,
+            topk_ratio=config.compress_topk_ratio,
+            chunk=config.compress_chunk,
+            error_feedback=config.compress_error_feedback))
     pool = ClientPool(task, train_partitions, test_partitions,
-                      proximal_mu=strategy.proximal_mu(), seed=config.seed)
+                      proximal_mu=strategy.proximal_mu(), seed=config.seed,
+                      compressor=compressor)
     profiles = make_straggler_profiles(pool.client_ids, config.scenario)
     platform = SimulatedFaaSPlatform(config.faas, seed=config.seed,
                                      recorder=recorder)

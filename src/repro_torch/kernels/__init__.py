@@ -3,9 +3,28 @@
   fed_agg        — staleness-weighted federated aggregation (Eq. 3)
   fed_agg_apply  — fused weighted-sum → pseudo-gradient → server-
                    optimizer moment update → apply (core/merge.py)
+  int8_encode,   — per-chunk int8 quantization of a client update and
+  int8_decode      its dense decode (core/compress.py)
+  topk_mask      — dense top-k decode given its threshold, driven by
+                   topk_encode (core/compress.py)
 """
+from .compress import (int8_decode, int8_decode_plain, int8_encode,
+                       int8_encode_plain, topk_decode, topk_encode, topk_mask,
+                       topk_mask_plain, topk_select)
 from .fed_agg import (APPLY_OPTS, fed_agg, fed_agg_apply,
-                      fed_agg_apply_plain, fed_agg_plain, reset_launches)
+                      fed_agg_apply_plain, fed_agg_plain)
 
-__all__ = ["APPLY_OPTS", "fed_agg", "fed_agg_apply", "fed_agg_apply_plain",
-           "fed_agg_plain", "reset_launches"]
+KERNELS = (fed_agg, fed_agg_apply, int8_encode, int8_decode, topk_mask)
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for wrapper in KERNELS:
+        wrapper.launches = 0
+
+
+__all__ = ["APPLY_OPTS", "KERNELS", "fed_agg",
+           "fed_agg_apply", "fed_agg_apply_plain", "fed_agg_plain",
+           "int8_decode", "int8_decode_plain", "int8_encode",
+           "int8_encode_plain", "reset_launches", "topk_decode",
+           "topk_encode", "topk_mask", "topk_mask_plain", "topk_select"]

@@ -17,6 +17,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -88,3 +90,30 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
     return lib
+
+
+def bind(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """``load(name)`` with the C signatures set: each entry point in
+    ``signatures`` takes its argument types and returns an int status, and
+    ``<name>_error_string`` turns a status into its message."""
+    lib = load(name)
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def check_status(lib: ctypes.CDLL, name: str, code: int, kernel: str) -> None:
+    """Raise if a launch of ``kernel`` from library ``name`` returned a
+    CUDA error."""
+    if code != 0:
+        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({code})")
+
+
+def stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as the C side takes it."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -55,23 +55,7 @@ _SIGNATURES = {
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The kernels' library, built at first use, with its C signatures."""
-    lib = build.load("fed_agg")
-    for fn, argtypes in _SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.fed_agg_error_string.argtypes = [ctypes.c_int]
-    lib.fed_agg_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check_status(lib: ctypes.CDLL, code: int, name: str) -> None:
-    if code != 0:
-        msg = lib.fed_agg_error_string(code).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return build.bind("fed_agg", _SIGNATURES)
 
 
 # ------------------------------------------------------------- checks
@@ -148,8 +132,8 @@ def fed_agg(updates: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     code = lib.fed_agg_launch(
         updates.data_ptr(), coeffs.data_ptr(), out.data_ptr(), K, P,
         _DTYPE_CODES[updates.dtype], updates.device.index or 0,
-        _stream(updates))
-    _check_status(lib, code, "fed_agg")
+        build.stream(updates))
+    build.check_status(lib, "fed_agg", code, "fed_agg")
     fed_agg.launches += 1
     return out
 
@@ -230,16 +214,10 @@ def fed_agg_apply(updates: torch.Tensor, coeffs: torch.Tensor,
         m.data_ptr(), v.data_ptr(), out.data_ptr(), m_new.data_ptr(),
         v_new.data_ptr(), partials.data_ptr(), n_blocks, K, P,
         _DTYPE_CODES[updates.dtype], APPLY_OPTS.index(opt),
-        lr, mix, b1, b2, eps, updates.device.index or 0, _stream(updates))
-    _check_status(lib, code, "fed_agg_apply")
+        lr, mix, b1, b2, eps, updates.device.index or 0, build.stream(updates))
+    build.check_status(lib, "fed_agg", code, "fed_agg_apply")
     fed_agg_apply.launches += 1
     return out, m_new, v_new, torch.sqrt(partials.sum())
 
 
 fed_agg_apply.launches = 0
-
-
-def reset_launches() -> None:
-    """Set every wrapper's launch count to 0."""
-    fed_agg.launches = 0
-    fed_agg_apply.launches = 0

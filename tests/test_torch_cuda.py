@@ -8,6 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.compress import (int8_decode, int8_decode_plain,
+                                          int8_encode, int8_encode_plain,
+                                          topk_decode, topk_encode, topk_mask,
+                                          topk_mask_plain, topk_select)
 from repro_torch.kernels.fed_agg import (APPLY_OPTS, fed_agg, fed_agg_apply,
                                          fed_agg_apply_plain, fed_agg_plain)
 
@@ -45,6 +49,42 @@ def test_kernels_match_plain_on_card(dtype):
         for t, w in zip(got[:3], want[:3]):
             torch.testing.assert_close(t, w, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [8, 256])
+def test_compress_kernels_match_plain_on_card(chunk):
+    """The codec kernels equal their plain versions bit for bit, on a
+    ragged length, an all-zero chunk and a tie-heavy vector."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = np.random.default_rng(6)
+    P = 100_003
+    x = rng.normal(size=P).astype(np.float32) * rng.uniform(0.01, 10, P)
+    x[:2 * chunk] = 0.0
+    ties = rng.integers(-3, 4, size=P).astype(np.float32)
+    for host in (x.astype(np.float32), ties):
+        x_d = torch.from_numpy(host).cuda()
+        before = (int8_encode.launches, int8_decode.launches,
+                  topk_mask.launches)
+        q, s = int8_encode(x_d, chunk)
+        q_w, s_w = int8_encode_plain(x_d, chunk)
+        out = int8_decode(q, s, P)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q_w) and torch.equal(s, s_w)
+        assert torch.equal(out, int8_decode_plain(q_w, s_w, P))
+        for k in (1, 1000):
+            idx, tau, last_keep = topk_select(x_d, k)
+            got = topk_mask(x_d, tau, last_keep)
+            torch.cuda.synchronize()
+            assert torch.equal(got, topk_mask_plain(x_d, tau, last_keep))
+            i32, vals, decoded = topk_encode(x_d, k)
+            assert torch.equal(i32.long(), idx)
+            assert torch.equal(decoded, got)
+            assert torch.equal(topk_decode(i32, vals, P), got)
+        assert (int8_encode.launches, int8_decode.launches,
+                topk_mask.launches) == tuple(b + n for b, n in
+                                             zip(before, (1, 1, 4)))
 
 
 @pytest.mark.cuda

@@ -12,11 +12,14 @@ input sits at 0: one flip there turns a zero gradient into a full Adam
 step (about lr = 1e-3).  At seed 0 FedLesScan hits one such flip, and
 eight conv2 weights of one nearly dead channel end 1.3e-3 apart while
 every other weight agrees within 4e-5.  Seed 3 has no flip in any of the
-three runs, so the 1e-4 bound measures the port and not the flip.
+three dense runs, so the 1e-4 bound measures the port and not the flip.
+The compressed runs train with local SGD and state their own bound (see
+test_compressed_experiment_matches_jax).
 """
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.data import label_sorted_shards, make_image_classification
 from repro.data.synthetic import ArrayDataset
@@ -27,8 +30,10 @@ from repro.fl.tasks import TaskConfig as JaxTaskConfig
 from repro.models.small import make_cnn as jax_make_cnn
 from repro.faas.trace import load_jsonl
 from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.core import compress as port_compress
 from repro_torch.fl import experiment
 from repro_torch.fl.tasks import ClassificationTask, TaskConfig
+from repro_torch.kernels import compress as port_codecs
 from repro_torch.kernels import fed_agg, fed_agg_apply
 from repro_torch.models.small import make_cnn
 
@@ -52,9 +57,10 @@ def _configs(module, strategy, trace_path, **kw):
                                        round_timeout_s=30.0), **kw)
 
 
-def _run_both(tmp_path, monkeypatch, strategy, **kw):
+def _run_both(tmp_path, monkeypatch, strategy, task_kw=None, **kw):
     parts, test_parts = _data()
-    task_cfg = dict(epochs=2, batch_size=32, per_sample_time_s=0.05)
+    task_cfg = dict(epochs=2, batch_size=32, per_sample_time_s=0.05,
+                    **(task_kw or {}))
     jax_model = jax_make_cnn(14, 1, 5, 64)
     init = jax.tree_util.tree_map(np.asarray,
                                   jax_model.init(jax.random.PRNGKey(0)))
@@ -129,11 +135,69 @@ def test_server_opt_experiment_matches_jax(tmp_path, monkeypatch):
                                        rtol=1e-4, atol=1e-4)
 
 
+def _record_codec_steps(monkeypatch, scheme):
+    """Wrap the port's codec as core/compress.py calls it, recording the
+    largest step each encode can take: the largest int8 scale (one code)
+    or the top-k threshold tau (a boundary entry kept or dropped)."""
+    steps = []
+    if scheme == "int8":
+        def int8_encode(x, chunk=256):
+            q, scale = port_codecs.int8_encode(x, chunk)
+            steps.append(float(scale.max()))
+            return q, scale
+        monkeypatch.setattr(port_compress, "int8_encode", int8_encode)
+    else:
+        def topk_encode(x, k):
+            steps.append(float(torch.topk(x.abs(), k).values[-1]))
+            return port_codecs.topk_encode(x, k)
+        monkeypatch.setattr(port_compress, "topk_encode", topk_encode)
+    return steps
+
+
+@pytest.mark.parametrize("scheme", ["int8", "topk"])
+def test_compressed_experiment_matches_jax(tmp_path, monkeypatch, scheme):
+    """FedLesScan with int8 or top-k@1 % client updates.  Wire sizes
+    depend only on P, k and the chunk count, so the traces (payload bytes,
+    egress billing, compression ratios) must agree byte for byte.
+
+    Final params: the codecs agree bit for bit on equal inputs
+    (test_torch_compress.py), so the runs differ by the convolutions' fp32
+    rounding, as the dense runs do, plus any codec decision that rounding
+    flips: one int8 code, or one top-k entry at the threshold.  A flip
+    moves one decoded value by at most one codec step, and error feedback
+    hands it back at that client's next encode.  The bound is therefore
+    the dense 1e-4 plus the largest step the port's run took.  Local SGD
+    (as tests/test_compression.py trains) keeps a flip where it happened;
+    local Adam would turn it into a run-wide drift (at this seed, int8
+    leaves 12,927 of conv2's 51,200 weights over 1e-5 apart, up to
+    1.5e-3), which measures Adam and not the port."""
+    steps = _record_codec_steps(monkeypatch, scheme)
+    (jax_res, jax_params), (res, params) = _run_both(
+        tmp_path, monkeypatch, "fedlesscan",
+        task_kw=dict(optimizer="sgd", learning_rate=0.05),
+        compress_scheme=scheme)
+    jax_trace = (tmp_path / "jax.jsonl").read_bytes()
+    assert b'"compression_ratio"' in jax_trace
+    assert (tmp_path / "torch.jsonl").read_bytes() == jax_trace
+    assert steps
+    bound = 1e-4 + max(steps)
+    got = params_to_numpy(params)
+    for layer in got:
+        for name in got[layer]:
+            np.testing.assert_allclose(got[layer][name],
+                                       np.asarray(jax_params[layer][name]),
+                                       rtol=0, atol=bound)
+    one_sample = 1.0 / min(len(ds) for ds in _data()[1].values())
+    assert abs(res.final_accuracy - jax_res.final_accuracy) <= one_sample
+    assert res.mean_eur == jax_res.mean_eur
+    assert res.total_duration_s == jax_res.total_duration_s
+
+
 def test_unported_knobs_raise():
     parts, test_parts = _data()
     task = ClassificationTask(make_cnn(14, 1, 5, 64), TaskConfig(),
                               device="cpu")
-    for knob in (dict(compress_scheme="int8"), dict(merge_devices=2),
+    for knob in (dict(merge_devices=2),
                  dict(executor_devices=2), dict(vectorized=True),
                  dict(checkpoint_dir="ckpt"), dict(resume_from="ckpt"),
                  dict(platforms={}), dict(compilation_cache_dir="cache"),
