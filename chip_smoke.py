@@ -12,14 +12,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    compression kernels bit for bit), and timed (CUDA events; device time,
    and as the host issues the calls) beside its memory bound and a
    library yardstick where one PyTorch call computes the same function.
-3. The main path: FedLesScan on the full-width FEMNIST CNN (3 rounds,
+3. The main paths: FedLesScan on the full-width FEMNIST CNN (3 rounds,
    8 clients a round, 30 % stragglers), then FedAvg with the FedAdam
    server optimizer, then FedLesScan with int8 and with top-k@1 %
    compressed client updates, through run_experiment on "cuda".  The
    launch counts are set to 0 just before each run and read just after;
    the compressed runs' traces must carry the codec's compression ratio
    in every merge.  Then one client's local training under
-   torch.profiler: the card's busy share.
+   torch.profiler: the card's busy share.  Then serving: Gemma 2 (2B) at
+   full width and depth (random weights from a seed) prefills 2 prompts
+   of 5120 tokens through the flash_attention kernel and decodes 32
+   greedy tokens (launch.serve.generate), with exactly one kernel launch
+   a layer.  Its prefill logits are held against the same model with
+   attention in the kernel's plain version, against the plain attention
+   path (printed) and against the model computed in fp32; and the model
+   in fp32, kernel against plain path, at full depth and at two layers,
+   within 1e-3.  Then four decode steps under torch.profiler.
 4. A JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -28,6 +36,7 @@ beside it, it fails before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -42,7 +51,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-KERNEL_SOURCES = ("fed_agg", "compress")   # csrc/<name>.cu, one nvcc each
+KERNEL_SOURCES = ("fed_agg", "compress", "flash_attention")  # csrc/<name>.cu
 MAIN_P = 6_603_710                   # femnist_cnn parameters
 MAIN_K = 8                           # clients per round on the main path
 MAIN_CHUNK = 256                     # int8 values per scale (the default)
@@ -55,8 +64,24 @@ BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-6)   # one bf16 ulp
 NORM_RTOL = 1e-5
 TIMED_RUNS = 20
 HOLD_CYCLES = 100_000_000            # ~50 ms of device sleep (see time_ms)
+# flash_attention checks: the kernel against its plain version
+FLASH_HEADS = ((1, 2, 2), (2, 8, 4), (1, 8, 1))      # (B, H, Hkv)
+FLASH_SEQS = (1, 100, 129, 1024)
+FLASH_DIMS = (64, 128, 256)
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),   # the JAX tests'
+             torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-3)}  # 1 bf16 ulp
+# the serve run: gemma2-2b at full width and depth
+SERVE_ARCH = "gemma2-2b"
+SERVE_B, SERVE_S, SERVE_NEW = 2, 5120, 32
+# prefill logits of the bf16 model, kernel path against the same model
+# with attention in the kernel's plain version, as a share of max |logit|
+# (PERF.md, PR 13: 3.9 % measured; the random 26-layer bf16 model turns
+# 1-ulp differences of the attention output into a few % of the logits)
+SERVE_LOGIT_RTOL = 5e-2
+FP32_LOGIT_TOL = 1e-3        # the model in fp32 (the JAX tests' bound)
 # published peaks of the H100 (SXM / PCIe data sheets)
 FP32_FLOPS = {"sxm": 67e12, "pcie": 51e12}
+BF16_FLOPS = {"sxm": 989e12, "pcie": 756e12}     # dense tensor cores
 MEM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
 
 
@@ -68,11 +93,12 @@ def card_part(name: str) -> str:
     return "pcie" if "pcie" in name.lower() else "sxm"
 
 
-def bound_ms(n_bytes: float, n_flops: float, part: str):
-    """Least time for the work: bytes over the memory rate or fp32
-    operations over the fp32 peak, whichever is larger."""
+def bound_ms(n_bytes: float, n_flops: float, part: str, peak=FP32_FLOPS):
+    """Least time for the work: bytes over the memory rate or operations
+    over the peak for their type (fp32 unless ``peak`` says otherwise),
+    whichever is larger."""
     by_bytes = n_bytes / MEM_BYTES_PER_S[part] * 1e3
-    by_ops = n_flops / FP32_FLOPS[part] * 1e3
+    by_ops = n_flops / peak[part] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -353,6 +379,102 @@ def check_topk_mask(gen, part: str) -> dict:
     return row
 
 
+def _attended_pairs(S: int, window) -> int:
+    """(row, col) pairs a causal attention of length S attends, with
+    row - col < window when a window is set."""
+    w = window or S
+    return sum(min(r + 1, w) for r in range(S))
+
+
+def check_flash_attention(gen, part: str) -> dict:
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, Hkv in FLASH_HEADS:
+            for S in FLASH_SEQS:
+                case_err, n_cases = 0.0, 0
+                for d in FLASH_DIMS:
+                    for window in (None, 64):
+                        for cap in (0.0, 50.0):
+                            for causal in ((True, False) if d == 64
+                                           else (True,)):
+                                n_cases += 1
+                                # every other case hands q over as the
+                                # swapaxes view the model passes
+                                q = (_randn((B, S, H, d), gen, dtype)
+                                     .transpose(1, 2) if n_cases % 2
+                                     else _randn((B, H, S, d), gen, dtype))
+                                k = _randn((B, Hkv, S, d), gen, dtype)
+                                v = _randn((B, Hkv, S, d), gen, dtype)
+                                kw = dict(causal=causal, window=window,
+                                          softcap=cap)
+                                got = flash_attention(q, k, v, **kw)
+                                want = flash_attention_plain(q, k, v, **kw)
+                                torch.cuda.synchronize()
+                                torch.testing.assert_close(
+                                    got, want, **FLASH_TOL[dtype],
+                                    msg=f"flash_attention {dtype} B={B} "
+                                        f"H={H} Hkv={Hkv} S={S} d={d} {kw}")
+                                case_err = max(case_err,
+                                               max_abs_err(got, want))
+                err = max(err, case_err)
+                log(f"flash_attention {str(dtype)[6:]} B={B} H={H} "
+                    f"Hkv={Hkv} S={S}: {n_cases} cases (d {FLASH_DIMS}, "
+                    f"window None/64, softcap 0/50), max |err| "
+                    f"{case_err:.3g}")
+
+    # the main path's shape: (B, S, H, d) buffers seen as (B, H, S, d)
+    B, H, Hkv, S, d = SERVE_B, 8, 4, SERVE_S, 256
+    q = _randn((B, S, H, d), gen, torch.bfloat16).transpose(1, 2)
+    k = _randn((B, S, Hkv, d), gen, torch.bfloat16).transpose(1, 2)
+    v = _randn((B, S, Hkv, d), gen, torch.bfloat16).transpose(1, 2)
+    n_bytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:100"}
+    for window, prefix in ((None, ""), (4096, "local_")):
+        kw = dict(window=window, softcap=50.0)
+        got = flash_attention(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **FLASH_TOL[torch.bfloat16])
+        err = max(err, max_abs_err(got, want))
+        del got, want
+        flops = 4.0 * d * _attended_pairs(S, window) * B * H
+        bound, bound_by = bound_ms(n_bytes, flops, part, BF16_FLOPS)
+        bound32, _ = bound_ms(n_bytes, flops, part)
+        row.update({
+            f"{prefix}ms": time_ms(lambda: flash_attention(q, k, v, **kw),
+                                   runs=5, warmup=2),
+            f"{prefix}call_ms": time_ms(
+                lambda: flash_attention(q, k, v, **kw), runs=5, warmup=1,
+                hold=False),
+            f"{prefix}plain_ms": time_ms(
+                lambda: flash_attention_plain(q, k, v, **kw), runs=3,
+                warmup=1),
+            f"{prefix}bound_ms": bound, f"{prefix}bound_by": bound_by,
+            f"{prefix}bound_fp32_ms": bound32, f"{prefix}gflop": flops / 1e9,
+        })
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    row.update({
+        "max_abs_err": err,
+        # no single PyTorch call computes soft-capped or windowed attention
+        "library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True, enable_gqa=True),
+            runs=5, warmup=2),
+        "library": "scaled_dot_product_attention(is_causal=True, "
+                   "enable_gqa=True): causal only, no softcap, no window",
+        "shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} bf16 softcap 50; "
+                 f"ms = global layer, local_ms = window 4096",
+        "mbytes": n_bytes / 1e6,
+    })
+    log(json.dumps({"kernel_check": row}))
+    return row
+
+
 # ------------------------------------------------------------ phase 3
 def _train_loss(task, params, parts) -> float:
     """Mean cross-entropy of ``params`` over every client's training
@@ -483,6 +605,197 @@ def profile_local_training() -> dict:
     return out
 
 
+def _max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| in fp32, a row of the batch and 1024 positions at a
+    time (the full difference of two logit tensors would need 10 GB)."""
+    out = 0.0
+    for i in range(a.shape[0]):
+        for s in range(0, a.shape[1], 1024):
+            d = a[i, s:s + 1024].float() - b[i, s:s + 1024].float()
+            out = max(out, float(d.abs().max()))
+    return out
+
+
+@contextlib.contextmanager
+def _attention_in_plain_version():
+    """Route the model's kernel path through flash_attention_plain (fp32
+    math, no kernel launch) for the length of the block."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.models import attention
+
+    kernel = attention.flash_attention
+    attention.flash_attention = flash_attention_plain
+    try:
+        yield
+    finally:
+        attention.flash_attention = kernel
+
+
+def profile_decode(cfg, params, prompt, steps: int = 4) -> dict:
+    """``steps`` decode steps after a prefill, under torch.profiler: host
+    time a step against the card's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, prefill
+
+    B, S = prompt.shape
+    logits, cache = prefill(cfg, params, {"tokens": prompt},
+                            cache_len=S + steps + 1,
+                            cache_dtype=torch.float32)
+    del logits
+    tok = prompt[:, -1:]
+    pos = torch.full((B,), S, dtype=torch.int64, device="cuda")
+    decode_step(cfg, params, cache, tok, pos)            # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            decode_step(cfg, params, cache, tok, pos + i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in on_card)
+    by_name = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "device_ops_per_step": len(on_card) / steps,
+            "top_ms_per_step": [[name[:80], us / 1e3 / steps]
+                                for name, us in top]}
+
+
+def run_serve(flash_row: dict) -> dict:
+    """Gemma 2 (2B) at full width and depth, random weights: prefill
+    SERVE_B prompts of SERVE_S tokens through the flash_attention kernel
+    and decode SERVE_NEW greedy tokens (the main path), then hold its
+    prefill logits against
+
+    - the same bf16 model with attention in the kernel's plain version
+      (fp32 math): within SERVE_LOGIT_RTOL of max |logit|;
+    - the query-chunked plain attention path (bf16 scores, as the JAX
+      package computes them): reported, with the greedy tokens' agreement;
+    - the model computed in fp32 on the plain path: the kernel path's
+      error may not exceed the plain path's;
+
+    and the model in fp32, kernel against plain path, at full depth and
+    at two layers (one local, one global), within FP32_LOGIT_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves, tree_map
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, param_count, prefill
+
+    cfg = get_config(SERVE_ARCH).replace(use_pallas_attention=True)
+    plain_cfg = cfg.replace(use_pallas_attention=False)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != param_count(cfg):
+        raise RuntimeError(f"{SERVE_ARCH}: {n_params} params, not "
+                           f"{param_count(cfg)}")
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    batch = {"tokens": prompt}
+    generate(cfg, params, prompt[:, :256], 2)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    run = generate(cfg, params, prompt, SERVE_NEW)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches["flash_attention"] != cfg.n_layers:
+        raise RuntimeError(f"serve: {launches['flash_attention']} "
+                           f"flash_attention launches, want {cfg.n_layers} "
+                           f"(one a layer)")
+    logits = run.prefill_logits
+    if tuple(logits.shape) != (SERVE_B, SERVE_S, cfg.vocab):
+        raise RuntimeError(f"serve: logits shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("serve: non-finite prefill logits")
+    if not (0 <= int(run.tokens.min()) and int(run.tokens.max()) < cfg.vocab):
+        raise RuntimeError("serve: generated ids out of the vocabulary")
+    max_logit = float(logits.abs().max())
+    out = {
+        "run": f"{SERVE_ARCH} serve", "arch": SERVE_ARCH,
+        "batch": SERVE_B, "prompt_len": SERVE_S, "new": SERVE_NEW,
+        "params": n_params, "init_s": init_s,
+        "prefill_s": run.prefill_s,
+        "prefill_tok_per_s": SERVE_B * SERVE_S / run.prefill_s,
+        "decode_ms_per_step": 1e3 * run.decode_s / SERVE_NEW,
+        "decode_tok_per_s": SERVE_B * SERVE_NEW / run.decode_s,
+        "flash_ms_per_prefill": (cfg.n_layers // 2) * (
+            flash_row["ms"] + flash_row["local_ms"]),
+        "peak_gb": peak_gb, "max_abs_logit": max_logit,
+        "launches": launches,
+    }
+
+    plain = generate(plain_cfg, params, prompt, SERVE_NEW)
+    first = (run.tokens != plain.tokens).any(dim=0).nonzero()
+    out.update({
+        "plain_prefill_s": plain.prefill_s,
+        "plain_decode_ms_per_step": 1e3 * plain.decode_s / SERVE_NEW,
+        "max_abs_logit_diff_vs_plain_path": _max_abs_diff(
+            logits, plain.prefill_logits),
+        "greedy_agree_share": float((run.tokens == plain.tokens)
+                                    .float().mean()),
+        "first_disagreeing_step": int(first[0]) if len(first) else None,
+    })
+    with _attention_in_plain_version():
+        twin, _ = prefill(cfg, params, batch)
+    out["max_abs_logit_diff_vs_plain_version"] = _max_abs_diff(logits, twin)
+    out["logit_diff_bound"] = SERVE_LOGIT_RTOL * max_logit
+    del twin
+    truth, _ = prefill(plain_cfg.replace(dtype="float32"), params, batch)
+    out["kernel_path_max_err_vs_fp32"] = _max_abs_diff(logits, truth)
+    out["plain_path_max_err_vs_fp32"] = _max_abs_diff(plain.prefill_logits,
+                                                      truth)
+    del run, plain, logits
+    k32, _ = prefill(cfg.replace(dtype="float32"), params, batch)
+    out["fp32_max_abs_logit"] = float(truth.abs().max())
+    out["fp32_max_abs_diff"] = _max_abs_diff(k32, truth)
+    del k32, truth
+
+    # two layers (one local, one global) in fp32: kernel vs plain path
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    params2 = dict(params, blocks=tree_map(lambda t: t[:1],
+                                           params["blocks"]))
+    a, _ = prefill(cfg2, params2, batch)
+    b, _ = prefill(cfg2.replace(use_pallas_attention=False), params2, batch)
+    if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+        raise RuntimeError("fp32 two-layer check: non-finite logits")
+    out["fp32_2layer_max_abs_logit"] = float(a.abs().max())
+    out["fp32_2layer_max_abs_diff"] = _max_abs_diff(a, b)
+    del a, b
+    out["decode_profile"] = profile_decode(cfg, params, prompt)
+    log(json.dumps({"serve": out}))
+
+    if not out["max_abs_logit_diff_vs_plain_version"] <= out[
+            "logit_diff_bound"]:
+        raise RuntimeError(
+            f"serve: prefill logits differ from the kernel's plain version "
+            f"by {out['max_abs_logit_diff_vs_plain_version']:.4g} > "
+            f"{out['logit_diff_bound']:.4g}")
+    if not out["kernel_path_max_err_vs_fp32"] <= out[
+            "plain_path_max_err_vs_fp32"]:
+        raise RuntimeError(
+            f"serve: the kernel path is further from the fp32 model "
+            f"({out['kernel_path_max_err_vs_fp32']:.4g}) than the plain "
+            f"path ({out['plain_path_max_err_vs_fp32']:.4g})")
+    for key in ("fp32_max_abs_diff", "fp32_2layer_max_abs_diff"):
+        if not out[key] <= FP32_LOGIT_TOL:
+            raise RuntimeError(f"serve: {key} {out[key]:.4g} > "
+                               f"{FP32_LOGIT_TOL}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -492,7 +805,8 @@ def main() -> int:
     part = card_part(smi)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_fed_agg(gen, part), check_fed_agg_apply(gen, part),
-            *check_int8(gen, part), check_topk_mask(gen, part)]
+            *check_int8(gen, part), check_topk_mask(gen, part),
+            check_flash_attention(gen, part)]
 
     fedlesscan = run_main_path("fedlesscan")
     fedadam = run_main_path("fedavg+fedadam", strategy="fedavg",
@@ -506,9 +820,11 @@ def main() -> int:
         compress_topk_ratio=TOPK_RATIO,
         ratio=round(4 * MAIN_P / (8 * CODEC_KS[-1]), 4))
     profile_local_training()
+    serve = run_serve(rows[-1])
     # which run's launches each kernel's row reports
     runs = {"fed_agg": fedlesscan, "fed_agg_apply": fedadam,
-            "int8_encode": int8, "int8_decode": int8, "topk_mask": topk}
+            "int8_encode": int8, "int8_decode": int8, "topk_mask": topk,
+            "flash_attention": serve}
     for row in rows:
         run = runs[row["name"]]
         row["launches"] = run["launches"][row["name"]]

@@ -7,14 +7,18 @@
   int8_decode      its dense decode (core/compress.py)
   topk_mask      — dense top-k decode given its threshold, driven by
                    topk_encode (core/compress.py)
+  flash_attention — causal / sliding-window / soft-capped GQA attention
+                   with an online softmax (models/attention.py)
 """
 from .compress import (int8_decode, int8_decode_plain, int8_encode,
                        int8_encode_plain, topk_decode, topk_encode, topk_mask,
                        topk_mask_plain, topk_select)
 from .fed_agg import (APPLY_OPTS, fed_agg, fed_agg_apply,
                       fed_agg_apply_plain, fed_agg_plain)
+from .flash_attention import flash_attention, flash_attention_plain
 
-KERNELS = (fed_agg, fed_agg_apply, int8_encode, int8_decode, topk_mask)
+KERNELS = (fed_agg, fed_agg_apply, int8_encode, int8_decode, topk_mask,
+           flash_attention)
 
 
 def reset_launches() -> None:
@@ -25,6 +29,7 @@ def reset_launches() -> None:
 
 __all__ = ["APPLY_OPTS", "KERNELS", "fed_agg",
            "fed_agg_apply", "fed_agg_apply_plain", "fed_agg_plain",
+           "flash_attention", "flash_attention_plain",
            "int8_decode", "int8_decode_plain", "int8_encode",
            "int8_encode_plain", "reset_launches", "topk_decode",
            "topk_encode", "topk_mask", "topk_mask_plain", "topk_select"]

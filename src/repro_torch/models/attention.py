@@ -1,0 +1,219 @@
+"""GQA attention: full/sliding-window causal (prefill), and single-token
+decode against a KV cache.  The port of the JAX package's
+models/attention.py; cross attention (VLM) waits for ROADMAP Queue 1.9.
+
+Layouts (head dims kept explicit, as in the reference):
+  wq: (D, H, hd)   wk/wv: (D, K, hd)   wo: (H, hd, D)
+  KV cache: (B, K, S_cache, hd); window layers use a ring buffer.
+
+With ``cfg.use_pallas_attention`` full-sequence self-attention runs in the
+hand-written ``flash_attention`` kernel (the reference's field name: in
+the port it routes to the CUDA kernel, and to its plain version on the
+CPU).  The decode cache is updated in place (an indexed write at each
+row's slot), where the reference builds a new array.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import torch
+
+from ..kernels.flash_attention import flash_attention
+from .config import ArchConfig
+from .layers import apply_rope, he_init, softcap
+
+Pytree = Any
+
+NEG_INF = -2.3819763e38  # large negative for masking in fp32
+
+
+def attn_init(gen: torch.Generator, cfg: ArchConfig,
+              dtype=torch.float32) -> Pytree:
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"wq": he_init(gen, (D, H, hd), D, dtype),
+            "wk": he_init(gen, (D, K, hd), D, dtype),
+            "wv": he_init(gen, (D, K, hd), D, dtype),
+            "wo": he_init(gen, (H, hd, D), H * hd, dtype)}
+
+
+def _qkv(p: Pytree, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    return q, k, v
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """q: (B,Sq,H,hd), k: (B,Sk,K,hd) → scores (B,K,G,Sq,Sk), G=H/K."""
+    B, Sq, H, hd = q.shape
+    qg = q.reshape(B, Sq, n_kv, H // n_kv, hd)
+    scale = torch.sqrt(torch.tensor(float(hd))).to(q.dtype)
+    return torch.einsum("bqkgh,bskh->bkgqs", qg, k) / scale
+
+
+def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs: (B,K,G,Sq,Sk), v: (B,Sk,K,hd) → (B,Sq,H,hd)."""
+    B, K, G, Sq, _ = probs.shape
+    o = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return o.reshape(B, Sq, K * G, v.shape[-1])
+
+
+def _causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                        window: Optional[int]) -> torch.Tensor:
+    """(Sq, Sk) boolean mask: True = attend."""
+    m = q_pos[:, None] >= k_pos[None, :]
+    if window:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def _softmax(scores: torch.Tensor, mask: torch.Tensor,
+             cap: float, fp32: bool = True) -> torch.Tensor:
+    if fp32:
+        s = softcap(scores.float(), cap)
+        s = torch.where(mask, s, NEG_INF)
+        return torch.softmax(s, dim=-1)
+    # bf16 softmax path: halves the (B,K,G,Sq,Sk) tensor traffic;
+    # max-subtraction keeps it stable, mask value fits bf16 range
+    s = softcap(scores, cap)
+    s = torch.where(mask, s, -3e38)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+# --------------------------------------------------------------- full seq
+def self_attention(p: Pytree, x: torch.Tensor, positions: torch.Tensor,
+                   cfg: ArchConfig, window: Optional[int] = None,
+                   q_chunk: int = 1024, return_kv: bool = False):
+    """Causal (optionally windowed) self-attention over a full sequence.
+
+    With ``cfg.use_pallas_attention`` it runs in the flash_attention
+    kernel; otherwise long sequences take the query dimension in chunks,
+    so live buffers stay O(q_chunk · S) instead of O(S²).
+    """
+    B, S, D = x.shape
+    q, k, v = _qkv(p, x)
+    q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
+
+    if cfg.use_pallas_attention:
+        # (B,S,H,hd) views as (B,H,S,hd): the kernel reads them in place
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=True, window=window,
+                            softcap=cfg.attn_logit_softcap)
+        o = o.transpose(1, 2).to(x.dtype)
+    elif S <= q_chunk:
+        mask = _causal_window_mask(positions[0], positions[0], window)
+        probs = _softmax(_gqa_scores(q, k, cfg.n_kv_heads), mask,
+                         cfg.attn_logit_softcap,
+                         cfg.attn_fp32_softmax).to(x.dtype)
+        o = _gqa_out(probs, v)
+    else:
+        assert S % q_chunk == 0, f"seq {S} not divisible by q_chunk {q_chunk}"
+        outs = []
+        for start in range(0, S, q_chunk):
+            pos_c = positions[0, start:start + q_chunk]
+            mask = _causal_window_mask(pos_c, positions[0], window)
+            pr = _softmax(_gqa_scores(q[:, start:start + q_chunk], k,
+                                      cfg.n_kv_heads), mask,
+                          cfg.attn_logit_softcap,
+                          cfg.attn_fp32_softmax).to(x.dtype)
+            outs.append(_gqa_out(pr, v))
+        o = torch.cat(outs, dim=1)
+
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def kv_to_cache(k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+                dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Convert prefill (B, S, K, hd) roped keys/values into the decode
+    cache layout (B, K, S_cache, hd).  Window layers keep the last
+    `window` entries arranged by ring-buffer slot (t % window) so decode
+    can continue writing at position S."""
+    B, S, K, hd = k.shape
+    kt = k.transpose(1, 2)
+    vt = v.transpose(1, 2)
+    if window and S > window:
+        slots = torch.arange(window, device=k.device)
+        # slot i holds the largest t < S with t % window == i
+        t = (S - 1) - torch.remainder(S - 1 - slots, window)
+        kt = kt[:, :, t, :]
+        vt = vt[:, :, t, :]
+    elif window and S <= window:
+        pad = window - S
+        kt = torch.nn.functional.pad(kt, (0, 0, 0, pad))
+        vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+    return (kt.to(dtype).contiguous(), vt.to(dtype).contiguous())
+
+
+# --------------------------------------------------------------- decode
+def init_kv_cache(cfg: ArchConfig, batch: int, length: int,
+                  dtype=torch.bfloat16, device=None) -> Pytree:
+    K, hd = cfg.n_kv_heads, cfg.hd
+    return {"k": torch.zeros((batch, K, length, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, K, length, hd), dtype=dtype,
+                             device=device)}
+
+
+def decode_self_attention(p: Pytree, x: torch.Tensor, cache: Pytree,
+                          pos: torch.Tensor, cfg: ArchConfig,
+                          window: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, Pytree]:
+    """One-token decode. x: (B, 1, D); pos: (B,) current positions.
+
+    Full-attention layers use a cache of the full context; window layers a
+    ring buffer of size `window` (keys are roped at absolute positions
+    before caching, so the ring wrap is transparent).  The cache tensors
+    are written in place and returned.
+    """
+    S_cache = cache["k"].shape[2]
+    q, k_new, v_new = _qkv(p, x)
+    q = apply_rope(q, pos[:, None], cfg.rope_fraction, cfg.rope_theta)
+    k_new = apply_rope(k_new, pos[:, None], cfg.rope_fraction,
+                       cfg.rope_theta)
+
+    slot = (torch.remainder(pos, S_cache) if window
+            else torch.clamp(pos, max=S_cache - 1))
+    k_cache = _scatter_time(cache["k"], k_new.to(cache["k"].dtype), slot)
+    v_cache = _scatter_time(cache["v"], v_new.to(cache["v"].dtype), slot)
+
+    scores = _gqa_scores(q, k_cache.transpose(1, 2).to(x.dtype),
+                         cfg.n_kv_heads)                     # (B,K,G,1,S)
+    idx = torch.arange(S_cache, device=x.device)
+    if window:
+        # ring buffer: a slot is valid if written within the last `window`
+        # steps, i.e. slot index corresponds to some t in (pos-window, pos]
+        valid = _ring_valid(idx, pos, S_cache)               # (B, S)
+    else:
+        valid = idx[None, :] <= pos[:, None]
+    mask = valid[:, None, None, None, :]
+    s = softcap(scores.float(), cfg.attn_logit_softcap)
+    s = torch.where(mask, s, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(x.dtype)
+    o = _gqa_out(probs, v_cache.transpose(1, 2).to(x.dtype))
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
+                  slot: torch.Tensor) -> torch.Tensor:
+    """cache (B,K,S,hd) ← new (B,1,K,hd) at per-row time index slot (B,),
+    written in place (the reference's one-hot blend, exact for finite
+    caches, without a pass over the whole cache)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, :, slot, :] = new[:, 0]
+    return cache
+
+
+def _ring_valid(idx: torch.Tensor, pos: torch.Tensor, S: int) -> torch.Tensor:
+    """Valid slots of a ring buffer of size S after writing position pos."""
+    # slot i currently holds time t(i) = the largest t ≤ pos with t % S == i;
+    # a floor modulo, as JAX's %, for the negative differences
+    p = pos[:, None]
+    t = p - torch.remainder(p - idx[None, :], S)
+    return (t >= 0) & (t >= p - S + 1)

@@ -1,0 +1,126 @@
+"""Shared neural layers: norms, gated MLP, RoPE, embeddings, init.
+
+The port of the JAX package's models/layers.py.  Init functions draw
+from an explicit ``torch.Generator`` on that generator's device (the same
+distributions as the reference, not its numbers).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+Pytree = Any
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+# ----------------------------------------------------------------- init
+def _normal(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=gen, device=gen.device)
+
+
+def he_init(gen: torch.Generator, shape, fan_in: Optional[int] = None,
+            dtype=torch.float32) -> torch.Tensor:
+    # the reference's precedence: (fan_in or shape[-2]) if 2-D or more
+    fan_in = fan_in or shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = math.sqrt(2.0 / max(1, fan_in))
+    return (_normal(gen, shape) * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape,
+               dtype=torch.float32) -> torch.Tensor:
+    return (_normal(gen, shape) * 0.02).to(dtype)
+
+
+# ----------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in fp32, cast back to input dtype (gemma-style 1+scale)."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+# ----------------------------------------------------------------- MLP
+def gated_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+                   dtype=torch.float32) -> Pytree:
+    return {"wg": he_init(gen, (d_model, d_ff), d_model, dtype),
+            "wu": he_init(gen, (d_model, d_ff), d_model, dtype),
+            "wd": he_init(gen, (d_ff, d_model), d_ff, dtype)}
+
+
+def gated_mlp(p: Pytree, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """SwiGLU/GeGLU: down( act(x@wg) * (x@wu) ).  ``gelu`` is the tanh
+    approximation, as ``jax.nn.gelu`` computes it by default."""
+    a = torch.einsum("...d,df->...f", x, p["wg"].to(x.dtype))
+    u = torch.einsum("...d,df->...f", x, p["wu"].to(x.dtype))
+    h = (F.silu(a) if act == "silu" else F.gelu(a, approximate="tanh")) * u
+    return torch.einsum("...f,fd->...d", h, p["wd"].to(x.dtype))
+
+
+# ----------------------------------------------------------------- RoPE
+def rope_frequencies(hd: int, fraction: float, theta: float,
+                     device=None) -> torch.Tensor:
+    """Inverse frequencies for the rotated sub-dimension (fraction of hd)."""
+    rot = int(hd * fraction) // 2 * 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: float,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, hd); positions: broadcastable to (..., S).
+
+    Applies rotary embedding to the first `fraction·hd` dims and passes the
+    rest through (chatglm3's 2d/partial RoPE uses fraction=0.5).
+    """
+    hd = x.shape[-1]
+    rot = int(hd * fraction) // 2 * 2
+    if rot == 0:
+        return x
+    inv = rope_frequencies(hd, fraction, theta, x.device)        # (rot/2,)
+    ang = positions[..., None].float() * inv                     # (...,S,rot/2)
+    cos = torch.cos(ang)[..., None, :]                           # add head dim
+    sin = torch.sin(ang)[..., None, :]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    y = torch.stack([y1, y2], dim=-1).reshape(x_rot.shape)
+    return torch.cat([y.to(x.dtype), x_pass], dim=-1)
+
+
+# ----------------------------------------------------------------- misc
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma2 logit soft-capping: cap · tanh(x / cap), in fp32."""
+    if not cap:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       impl: str = "logsoftmax") -> torch.Tensor:
+    """Mean token CE in fp32. logits (..., V), targets (...) int.
+
+    impl='logsumexp' avoids materialising the full fp32 log-softmax tensor
+    (nll = logsumexp(logits) − logits[target]); mathematically identical.
+    """
+    lf = logits.float()
+    idx = targets[..., None].long()
+    if impl == "logsumexp":
+        nll = (torch.logsumexp(lf, dim=-1)
+               - torch.take_along_dim(lf, idx, dim=-1)[..., 0])
+    else:
+        logp = torch.log_softmax(lf, dim=-1)
+        nll = -torch.take_along_dim(logp, idx, dim=-1)[..., 0]
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

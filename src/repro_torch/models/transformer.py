@@ -1,0 +1,273 @@
+"""Decoder backbone: the port of the JAX package's models/transformer.py
+for the dense attention block kinds ``attn`` and ``local``.
+
+Params keep the reference's tree: the layer stack is ``n_super``
+superblocks (one repetition of cfg.pattern) whose params are stacked on a
+leading axis under ``params["blocks"]["pos{i}"]``, plus an unrolled
+remainder of ``n_layers % period`` leading pattern positions under
+``params["rem"]``.  ``lax.scan`` over the stack becomes a Python loop.
+Block kinds ``mamba``, ``shared_attn`` and ``cross``, mixtures of experts
+and codebooks are not ported yet (ROADMAP Queue 1.9): every entry point
+raises ``NotImplementedError`` for such a config.
+
+Entry points:
+  init_params(cfg, gen)                        → params
+  forward(cfg, params, batch)                  → logits           (eval)
+  prefill(cfg, params, batch)                  → (logits, cache)  (prefill)
+  decode_step(cfg, params, cache, tokens, pos) → (logits, cache)  (decode)
+  init_cache(cfg, batch_size, context_len)     → cache tree
+
+Params live on the device of the ``torch.Generator`` that made them (or of
+the tensors loaded with ``convert.params_from_numpy``); batches and caches
+live beside them.  ``decode_step`` writes the new token's keys and values
+into the cache tensors in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..core.flatten import tree_map
+from .attention import (attn_init, decode_self_attention, init_kv_cache,
+                        kv_to_cache, self_attention)
+from .config import ArchConfig
+from .layers import (dtype_of, embed_init, gated_mlp, gated_mlp_init,
+                     he_init, rms_norm, softcap)
+
+Pytree = Any
+
+PORTED_KINDS = ("attn", "local")
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    """Raise for a config that needs a block kind or feature the port does
+    not have yet."""
+    missing = sorted(set(cfg.pattern) - set(PORTED_KINDS))
+    if cfg.n_experts > 0:
+        missing.append("moe")
+    if cfg.n_codebooks > 0:
+        missing.append("codebooks")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported to the PyTorch "
+            f"package yet (ROADMAP Queue 1.9); ported block kinds: "
+            f"{', '.join(PORTED_KINDS)}")
+
+
+def _layer_positions(cfg: ArchConfig):
+    return [i for i, k in enumerate(cfg.pattern) if k != "shared_attn"]
+
+
+def _slice(tree: Pytree, s: int) -> Pytree:
+    """Superblock ``s`` of a tree stacked on its leading axis (views)."""
+    return tree_map(lambda t: t[s], tree)
+
+
+# ============================================================ param init
+def _block_init(gen: torch.Generator, kind: str, cfg: ArchConfig,
+                dtype) -> Pytree:
+    D = cfg.d_model
+    return {"ln1": torch.zeros((D,), dtype=dtype, device=gen.device),
+            "attn": attn_init(gen, cfg, dtype),
+            "ln2": torch.zeros((D,), dtype=dtype, device=gen.device),
+            "mlp": gated_mlp_init(gen, D, cfg.d_ff, dtype)}
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
+    """Random params from ``gen``, on ``gen``'s device, in
+    ``cfg.param_dtype``, with the reference's keys and shapes."""
+    _check_ported(cfg)
+    dtype = dtype_of(cfg.param_dtype)
+    D, V = cfg.d_model, cfg.vocab
+    params: Dict[str, Any] = {"embed": embed_init(gen, (V, D), dtype)}
+    blocks: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.pattern):
+        stack = [_block_init(gen, kind, cfg, dtype)
+                 for _ in range(cfg.n_super)]
+        blocks[f"pos{i}"] = tree_map(lambda *xs: torch.stack(xs), *stack)
+    params["blocks"] = blocks
+    positions = _layer_positions(cfg)
+    rem = {f"pos{positions[j]}": _block_init(gen, cfg.pattern[positions[j]],
+                                             cfg, dtype)
+           for j in range(cfg.n_rem)}
+    if rem:
+        params["rem"] = rem
+    params["final_norm"] = torch.zeros((D,), dtype=dtype, device=gen.device)
+    if not cfg.tie_embeddings:
+        params["head"] = he_init(gen, (D, V), D, dtype)
+    return params
+
+
+# ============================================================ block fwd
+def _window(kind: str, cfg: ArchConfig) -> Optional[int]:
+    return cfg.window if kind == "local" else None
+
+
+def _apply_block(kind: str, p: Pytree, x: torch.Tensor, cfg: ArchConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + self_attention(p["attn"], h, positions, cfg, _window(kind, cfg))
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + gated_mlp(p["mlp"], h2, cfg.act)
+
+
+def _superblock(params_i: Pytree, x: torch.Tensor, cfg: ArchConfig,
+                positions: torch.Tensor) -> torch.Tensor:
+    for i, kind in enumerate(cfg.pattern):
+        x = _apply_block(kind, params_i[f"pos{i}"], x, cfg, positions)
+    return x
+
+
+# ============================================================ embeddings
+def _embed(params: Pytree, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(dtype)
+
+
+def _logits(cfg: ArchConfig, params: Pytree, h: torch.Tensor) -> torch.Tensor:
+    if not cfg.tie_embeddings and "head" in params:
+        out = torch.einsum("bsd,dv->bsv", h, params["head"].to(h.dtype))
+    else:
+        out = torch.einsum("bsd,vd->bsv", h, params["embed"].to(h.dtype))
+    return softcap(out, cfg.final_logit_softcap)
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    B, S = tokens.shape
+    return torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+
+
+# ============================================================ forward
+def forward(cfg: ArchConfig, params: Pytree,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Full-sequence forward → logits (B, S, V)."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    positions = _positions(tokens)
+    x = _embed(params, tokens, dtype_of(cfg.dtype))
+    for s in range(cfg.n_super):
+        x = _superblock(_slice(params["blocks"], s), x, cfg, positions)
+    positions_rem = _layer_positions(cfg)
+    for j in range(cfg.n_rem):
+        i = positions_rem[j]
+        x = _apply_block(cfg.pattern[i], params["rem"][f"pos{i}"], x, cfg,
+                         positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(cfg, params, x)
+
+
+# ============================================================ caches
+def _block_cache(kind: str, cfg: ArchConfig, batch: int, context: int,
+                 dtype=torch.bfloat16, device=None) -> Pytree:
+    length = min(cfg.window, context) if kind == "local" else context
+    return init_kv_cache(cfg, batch, length, dtype, device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, context: int,
+               dtype=torch.bfloat16, device=None) -> Pytree:
+    """Zero-initialised cache tree matching decode_step's expectations."""
+    _check_ported(cfg)
+    cache: Dict[str, Any] = {"blocks": {}}
+    for i, kind in enumerate(cfg.pattern):
+        blk = _block_cache(kind, cfg, batch, context, dtype, device)
+        cache["blocks"][f"pos{i}"] = tree_map(
+            lambda t: t[None].repeat((max(1, cfg.n_super),)
+                                     + (1,) * t.dim()), blk)
+    positions = _layer_positions(cfg)
+    rem = {f"pos{positions[j]}": _block_cache(
+        cfg.pattern[positions[j]], cfg, batch, context, dtype, device)
+        for j in range(cfg.n_rem)}
+    if rem:
+        cache["rem"] = rem
+    return cache
+
+
+# ============================================================ prefill
+def _prefill_block(kind: str, p: Pytree, x: torch.Tensor, cfg: ArchConfig,
+                   positions: torch.Tensor, cache_dtype, cache_len: int
+                   ) -> Tuple[torch.Tensor, Pytree]:
+    window = _window(kind, cfg)
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, (k, v) = self_attention(p["attn"], h, positions, cfg, window,
+                               return_kv=True)
+    x = x + y
+    kc, vc = kv_to_cache(k, v, window, cache_dtype)
+    if not window and cache_len > kc.shape[2]:
+        pad = (0, 0, 0, cache_len - kc.shape[2])
+        kc = torch.nn.functional.pad(kc, pad)
+        vc = torch.nn.functional.pad(vc, pad)
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + gated_mlp(p["mlp"], h2, cfg.act)
+    return x, {"k": kc, "v": vc}
+
+
+def prefill(cfg: ArchConfig, params: Pytree, batch: Dict[str, torch.Tensor],
+            cache_len: Optional[int] = None,
+            cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Pytree]:
+    """Inference prefill: full-sequence forward that also emits the decode
+    cache (KV per attention block in ring/linear layout)."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    S = tokens.shape[-1]
+    cache_len = cache_len or S
+    positions = _positions(tokens)
+    x = _embed(params, tokens, dtype_of(cfg.dtype))
+
+    per_super = []
+    for s in range(cfg.n_super):
+        params_i = _slice(params["blocks"], s)
+        new_cache = {}
+        for i, kind in enumerate(cfg.pattern):
+            x, new_cache[f"pos{i}"] = _prefill_block(
+                kind, params_i[f"pos{i}"], x, cfg, positions, cache_dtype,
+                cache_len)
+        per_super.append(new_cache)
+    cache: Dict[str, Any] = {}
+    if per_super:
+        cache["blocks"] = tree_map(lambda *xs: torch.stack(xs), *per_super)
+    positions_rem = _layer_positions(cfg)
+    rem = {}
+    for j in range(cfg.n_rem):
+        i = positions_rem[j]
+        x, rem[f"pos{i}"] = _prefill_block(
+            cfg.pattern[i], params["rem"][f"pos{i}"], x, cfg, positions,
+            cache_dtype, cache_len)
+    if rem:
+        cache["rem"] = rem
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(cfg, params, x), cache
+
+
+# ============================================================ decode
+def _decode_block(kind: str, p: Pytree, x: torch.Tensor, blk_cache: Pytree,
+                  pos: torch.Tensor, cfg: ArchConfig
+                  ) -> Tuple[torch.Tensor, Pytree]:
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, kv = decode_self_attention(p["attn"], h, blk_cache, pos, cfg,
+                                  _window(kind, cfg))
+    x = x + y
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + gated_mlp(p["mlp"], h2, cfg.act), kv
+
+
+def decode_step(cfg: ArchConfig, params: Pytree, cache: Pytree,
+                tokens: torch.Tensor, pos: torch.Tensor
+                ) -> Tuple[torch.Tensor, Pytree]:
+    """One decode step. tokens: (B, 1); pos: (B,).  The cache's tensors
+    are updated in place; the same tree is returned."""
+    _check_ported(cfg)
+    x = _embed(params, tokens, dtype_of(cfg.dtype))
+    for s in range(cfg.n_super):
+        params_i = _slice(params["blocks"], s)
+        cache_i = _slice(cache["blocks"], s)     # views into the stack
+        for i, kind in enumerate(cfg.pattern):
+            x, _ = _decode_block(kind, params_i[f"pos{i}"], x,
+                                 cache_i[f"pos{i}"], pos, cfg)
+    positions_rem = _layer_positions(cfg)
+    for j in range(cfg.n_rem):
+        i = positions_rem[j]
+        x, _ = _decode_block(cfg.pattern[i], params["rem"][f"pos{i}"], x,
+                             cache["rem"][f"pos{i}"], pos, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(cfg, params, x), cache

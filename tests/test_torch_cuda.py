@@ -14,6 +14,8 @@ from repro_torch.kernels.compress import (int8_decode, int8_decode_plain,
                                           topk_mask_plain, topk_select)
 from repro_torch.kernels.fed_agg import (APPLY_OPTS, fed_agg, fed_agg_apply,
                                          fed_agg_apply_plain, fed_agg_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 
 HYPER = (0.1, 0.8, 0.9, 0.99, 1e-3)          # lr, mix, b1, b2, eps
 BF16_ULP = 2.0 ** -7                          # bf16 keeps 8 significant bits
@@ -123,3 +125,52 @@ def test_experiment_runs_on_card(tmp_path):
                 assert bool(torch.isfinite(leaf).all())
         traces[device] = (tmp_path / f"{device}.jsonl").read_bytes()
     assert traces["cuda"] == traces["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_on_card(dtype):
+    """The kernel against its plain version at head dim 256 with GQA, a
+    window, softcap, ragged S and a non-contiguous (swapaxes) input;
+    fp32 within 2e-5, bf16 within one bf16 ulp plus 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    tol = (dict(rtol=2e-5, atol=2e-5) if dtype == torch.float32
+           else dict(rtol=BF16_ULP, atol=1e-3))
+    rng = np.random.default_rng(7)
+    for (B, H, Hkv, S, d, window, cap) in ((2, 8, 4, 129, 256, 64, 50.0),
+                                           (1, 2, 2, 1, 256, None, 0.0),
+                                           (1, 8, 1, 100, 64, None, 50.0)):
+        q = torch.from_numpy(rng.normal(size=(B, S, H, d)).astype(
+            np.float32)).to("cuda", dtype).transpose(1, 2)
+        k, v = (torch.from_numpy(rng.normal(size=(B, Hkv, S, d)).astype(
+            np.float32)).to("cuda", dtype) for _ in range(2))
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        want = flash_attention_plain(q, k, v, window=window, softcap=cap)
+        torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.cuda
+def test_generate_with_kernel_matches_plain_path_on_card():
+    """Reduced gemma2-2b served on the card: greedy tokens through the
+    kernel equal those of the plain attention path, one launch a layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params
+
+    cfg = get_config("gemma2-2b").reduced()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab, (2, 80), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    before = flash_attention.launches
+    kern = generate(cfg.replace(use_pallas_attention=True), params, prompt, 8)
+    assert flash_attention.launches == before + cfg.n_layers
+    plain = generate(cfg, params, prompt, 8)
+    assert torch.equal(kern.tokens, plain.tokens)
+    torch.testing.assert_close(kern.prefill_logits, plain.prefill_logits,
+                               rtol=1e-4, atol=1e-4)

@@ -20,7 +20,9 @@ PORT = REPO / "src" / "repro_torch"
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.fl.experiment, "
-            "repro_torch.launch.train, repro_torch.convert\n"
+            "repro_torch.launch.train, repro_torch.convert, "
+            "repro_torch.models.transformer, repro_torch.configs, "
+            "repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]\n"
