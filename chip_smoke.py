@@ -27,7 +27,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention in the kernel's plain version, against the plain attention
    path (printed) and against the model computed in fp32; and the model
    in fp32, kernel against plain path, at full depth and at two layers,
-   within 1e-3.  Then four decode steps under torch.profiler.
+   within 1e-3.  Then four decode steps under torch.profiler.  Then the
+   SSM models at full width and depth (random weights from a seed):
+   mamba2-130m prefills 4 prompts of 4096 tokens with one ssd_scan launch
+   a layer (24), and zamba2-1.2b prefills 2 prompts of 4096 with 38
+   ssd_scan launches and 6 flash_attention launches (its weight-tied
+   shared attention block); both decode 32 greedy tokens.  Each is held
+   against the same model with both kernels in their plain versions (bf16
+   within a share of max |logit|, fp32 within 1e-3), and in fp32 prefill
+   of S tokens plus one decode step against prefill of S + 1 tokens
+   (within 1e-3: the kernel's final state against the recurrence).
 4. A JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -48,10 +57,12 @@ from pathlib import Path
 
 import torch
 
+T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-KERNEL_SOURCES = ("fed_agg", "compress", "flash_attention")  # csrc/<name>.cu
+KERNEL_SOURCES = ("fed_agg", "compress", "flash_attention",  # csrc/<name>.cu
+                  "ssd_scan")
 MAIN_P = 6_603_710                   # femnist_cnn parameters
 MAIN_K = 8                           # clients per round on the main path
 MAIN_CHUNK = 256                     # int8 values per scale (the default)
@@ -79,6 +90,17 @@ SERVE_B, SERVE_S, SERVE_NEW = 2, 5120, 32
 # 1-ulp differences of the attention output into a few % of the logits)
 SERVE_LOGIT_RTOL = 5e-2
 FP32_LOGIT_TOL = 1e-3        # the model in fp32 (the JAX tests' bound)
+# ssd_scan checks: the kernel against its plain version, inputs at the JAX
+# tests' scales (x, B, C ~ 0.5·N(0, 1), a_dt = -0.3·|N(0, 1)|)
+SSD_SHAPES = ((1, 1, 2, 16, 8), (2, 100, 3, 40, 16), (1, 129, 2, 64, 128),
+              (2, 300, 4, 64, 64), (1, 1000, 2, 24, 100))  # (b, l, h, p, n)
+SSD_FP32_TOL = 1e-4          # rtol and atol
+SSD_BF16_ATOL = 1e-3         # plus one bf16 ulp of max |y|
+# in the serve runs, each scan call on the model's own activations: y as
+# above, the fp32 state within SSD_FP32_TOL relative or SSD_FP32_TOL of
+# max |state| (its sums over thousands of positions cancel)
+# the two SSM serve runs: (arch, prompts, prompt length, use_pallas_attention)
+SSM_SERVES = (("mamba2-130m", 4, 4096, False), ("zamba2-1.2b", 2, 4096, True))
 # published peaks of the H100 (SXM / PCIe data sheets)
 FP32_FLOPS = {"sxm": 67e12, "pcie": 51e12}
 BF16_FLOPS = {"sxm": 989e12, "pcie": 756e12}     # dense tensor cores
@@ -475,6 +497,107 @@ def check_flash_attention(gen, part: str) -> dict:
     return row
 
 
+def _ssd_inputs(shape, gen, dtype, broadcast: bool):
+    """x, a_dt, B, C at the JAX tests' scales; with ``broadcast`` B and C
+    are head-broadcast views (head stride 0), as models/ssm.py passes
+    them."""
+    b, l, h, p, n = shape
+    x = (_randn((b, l, h, p), gen) * 0.5).to(dtype)
+    a = -_randn((b, l, h), gen).abs() * 0.3
+    B, C = ((_randn((b, l, 1 if broadcast else h, n), gen) * 0.5).to(dtype)
+            .expand(b, l, h, n) for _ in range(2))
+    return x, a, B, C
+
+
+def _ssd_y_tol(want: torch.Tensor) -> dict:
+    """The bound on the kernel's y: SSD_FP32_TOL in fp32; in bf16 one bf16
+    ulp of max |y| plus SSD_BF16_ATOL."""
+    if want.dtype == torch.float32:
+        return dict(rtol=SSD_FP32_TOL, atol=SSD_FP32_TOL)
+    return dict(rtol=0.0, atol=BF16_TOL["rtol"] * float(
+        want.float().abs().max()) + SSD_BF16_ATOL)
+
+
+def _ssd_work(x, a, B, q: int = 128):
+    """(operations, bytes) of one scan: per token and head 2qn + 2qp for
+    the masked products (counted in full, at the reference's chunk q) and
+    4pn for the state's two products; x and y, a_dt, the final state and
+    B and C (each read once in place) moved once."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    flops = float(b * l * h) * (2 * q * n + 2 * q * p + 4 * p * n)
+    bc_heads = 1 if B.stride(2) == 0 else h
+    n_bytes = (2 * x.numel() * x.element_size() + 4 * a.numel()
+               + 4 * b * h * p * n + 2 * b * l * bc_heads * n
+               * B.element_size())
+    return flops, n_bytes
+
+
+def check_ssd_scan(gen, part: str) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    main_shapes = {}
+    for cfg_name, batch, S, _ in SSM_SERVES:
+        c = get_config(cfg_name)
+        main_shapes[cfg_name] = (batch, S, c.ssm_heads, c.ssm_head_dim,
+                                 c.ssm_state)
+    err = 0.0
+    for shape in SSD_SHAPES + tuple(main_shapes.values()):
+        for dtype in (torch.float32, torch.bfloat16):
+            for broadcast in (False, True):
+                args = _ssd_inputs(shape, gen, dtype, broadcast)
+                y, state = ssd_scan(*args, return_state=True)
+                want, want_state = ssd_scan_plain(*args, return_state=True)
+                torch.cuda.synchronize()
+                label = (f"ssd_scan {str(dtype)[6:]} (b, l, h, p, n) = "
+                         f"{shape} broadcast {broadcast}")
+                torch.testing.assert_close(y, want, **_ssd_y_tol(want),
+                                           msg=label)
+                torch.testing.assert_close(state, want_state,
+                                           rtol=SSD_FP32_TOL,
+                                           atol=SSD_FP32_TOL, msg=label)
+                case_err = max(max_abs_err(y, want),
+                               max_abs_err(state, want_state))
+                err = max(err, case_err)
+                log(f"{label}: max |err| y {max_abs_err(y, want):.3g} "
+                    f"state {max_abs_err(state, want_state):.3g}")
+                del args, y, state, want, want_state
+
+    row = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:84"}
+    # the main path's calls: bf16, B and C broadcast over heads, the state
+    for cfg_name, prefix in (("mamba2-130m", ""), ("zamba2-1.2b", "zamba_")):
+        args = _ssd_inputs(main_shapes[cfg_name], gen, torch.bfloat16, True)
+        flops, n_bytes = _ssd_work(*args[:3])
+        bound, bound_by = bound_ms(n_bytes, flops, part, BF16_FLOPS)
+        bound32, _ = bound_ms(n_bytes, flops, part)
+        row.update({
+            f"{prefix}ms": time_ms(lambda: ssd_scan(*args, return_state=True),
+                                   runs=10),
+            f"{prefix}call_ms": time_ms(
+                lambda: ssd_scan(*args, return_state=True), runs=10,
+                hold=False),
+            f"{prefix}plain_ms": time_ms(
+                lambda: ssd_scan_plain(*args, return_state=True), runs=3,
+                warmup=1),
+            f"{prefix}bound_ms": bound, f"{prefix}bound_by": bound_by,
+            f"{prefix}bound_fp32_ms": bound32, f"{prefix}gflop": flops / 1e9,
+            f"{prefix}mbytes": n_bytes / 1e6,
+        })
+        del args
+    row.update({
+        "max_abs_err": err,
+        "library_ms": None,     # no single PyTorch call computes the scan
+        "shape": (f"(b, l, h, p, n) = {main_shapes['mamba2-130m']} bf16, B/C "
+                  f"broadcast over heads, return_state; zamba_ = "
+                  f"{main_shapes['zamba2-1.2b']}"),
+    })
+    log(json.dumps({"kernel_check": row}))
+    return row
+
+
 # ------------------------------------------------------------ phase 3
 def _train_loss(task, params, parts) -> float:
     """Mean cross-entropy of ``params`` over every client's training
@@ -631,6 +754,60 @@ def _attention_in_plain_version():
         attention.flash_attention = kernel
 
 
+@contextlib.contextmanager
+def _ssd_in_plain_version(tile=None):
+    """Route models/ssm.py's scan through ssd_scan_plain (fp32 math, no
+    kernel launch) for the length of the block, in chunks of the kernel's
+    tile unless ``tile`` is given.  The random bf16 models' logits move by
+    several % of max |logit| when only the chunk of the fp32 sums changes
+    (the serve runs print it), so the kernel is held against the plain
+    version that groups its sums as the kernel does."""
+    from repro_torch.kernels.ssd_scan import TILE, ssd_scan_plain
+    from repro_torch.models import ssm
+
+    def plain(x, a_dt, B, C, chunk=128, return_state=False):
+        return ssd_scan_plain(x, a_dt, B, C, tile or TILE, return_state)
+
+    kernel = ssm.ssd_scan
+    ssm.ssd_scan = plain
+    try:
+        yield
+    finally:
+        ssm.ssd_scan = kernel
+
+
+@contextlib.contextmanager
+def _ssd_checked_per_call(report: dict):
+    """Route models/ssm.py's scan through the kernel and, on the same
+    inputs, its plain version at the kernel's tile: every call's y must
+    agree within _ssd_y_tol and its state within SSD_FP32_TOL (relative,
+    or of max |state|).  The kernel's result goes on, so the model runs
+    its main path; ``report`` gathers the calls and the largest errors."""
+    from repro_torch.kernels.ssd_scan import TILE, ssd_scan, ssd_scan_plain
+    from repro_torch.models import ssm
+
+    def checked(x, a_dt, B, C, chunk=128, return_state=False):
+        y, state = ssd_scan(x, a_dt, B, C, chunk, return_state=True)
+        want, want_state = ssd_scan_plain(x, a_dt, B, C, TILE, True)
+        label = f"ssd_scan call {report['calls']} {tuple(x.shape)}"
+        torch.testing.assert_close(y, want, **_ssd_y_tol(want), msg=label)
+        torch.testing.assert_close(
+            state, want_state, rtol=SSD_FP32_TOL,
+            atol=SSD_FP32_TOL * float(want_state.abs().max()), msg=label)
+        report["calls"] += 1
+        report["max_err_y"] = max(report["max_err_y"], max_abs_err(y, want))
+        report["max_err_state"] = max(report["max_err_state"],
+                                      max_abs_err(state, want_state))
+        return (y, state) if return_state else y
+
+    kernel = ssm.ssd_scan
+    ssm.ssd_scan = checked
+    try:
+        yield
+    finally:
+        ssm.ssd_scan = kernel
+
+
 def profile_decode(cfg, params, prompt, steps: int = 4) -> dict:
     """``steps`` decode steps after a prefill, under torch.profiler: host
     time a step against the card's busy time."""
@@ -667,6 +844,21 @@ def profile_decode(cfg, params, prompt, steps: int = 4) -> dict:
             "device_ops_per_step": len(on_card) / steps,
             "top_ms_per_step": [[name[:80], us / 1e3 / steps]
                                 for name, us in top]}
+
+
+def _check_generation(arch: str, run, logits_shape: tuple) -> None:
+    """Prefill logits of the expected (B, S, V) shape, all finite, and
+    generated ids inside the vocabulary."""
+    logits = run.prefill_logits
+    if tuple(logits.shape) != logits_shape:
+        raise RuntimeError(f"{arch} serve: logits shape "
+                           f"{tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"{arch} serve: non-finite prefill logits")
+    if not (0 <= int(run.tokens.min())
+            and int(run.tokens.max()) < logits_shape[2]):
+        raise RuntimeError(f"{arch} serve: generated ids out of the "
+                           f"vocabulary")
 
 
 def run_serve(flash_row: dict) -> dict:
@@ -716,12 +908,7 @@ def run_serve(flash_row: dict) -> dict:
                            f"flash_attention launches, want {cfg.n_layers} "
                            f"(one a layer)")
     logits = run.prefill_logits
-    if tuple(logits.shape) != (SERVE_B, SERVE_S, cfg.vocab):
-        raise RuntimeError(f"serve: logits shape {tuple(logits.shape)}")
-    if not bool(torch.isfinite(logits).all()):
-        raise RuntimeError("serve: non-finite prefill logits")
-    if not (0 <= int(run.tokens.min()) and int(run.tokens.max()) < cfg.vocab):
-        raise RuntimeError("serve: generated ids out of the vocabulary")
+    _check_generation(SERVE_ARCH, run, (SERVE_B, SERVE_S, cfg.vocab))
     max_logit = float(logits.abs().max())
     out = {
         "run": f"{SERVE_ARCH} serve", "arch": SERVE_ARCH,
@@ -796,6 +983,132 @@ def run_serve(flash_row: dict) -> dict:
     return out
 
 
+def run_ssm_serve(arch: str, batch: int, S: int, pallas: bool) -> dict:
+    """An SSM model (mamba2-130m, or the hybrid zamba2-1.2b with its shared
+    attention in flash_attention) at full width and depth, random weights:
+    prefill ``batch`` prompts of S tokens and decode SERVE_NEW greedy
+    tokens (the main path), with one ssd_scan launch a Mamba layer and one
+    flash_attention launch a shared block, all in prefill.  Then
+
+    - every scan call of the bf16 model's prefill against its plain
+      version on the same activations (_ssd_checked_per_call);
+    - the bf16 model against the same model with both kernels in their
+      plain versions: within SERVE_LOGIT_RTOL of max |logit|, or twice
+      the difference that regrouping the plain scan's fp32 sums (chunks
+      of 128 against the kernel's 64) makes on its own, if that is more
+      (the random bf16 models amplify 1-ulp flips: PERF.md §6, PR 14);
+    - the model in fp32, kernel path against plain versions, at full
+      depth: within FP32_LOGIT_TOL;
+    - in fp32, prefill of S tokens and one decode step against prefill of
+      S + 1 tokens at the last position (the kernel's final state against
+      the recurrence): within FP32_LOGIT_TOL;
+
+    and the bf16 kernel path's error against the fp32 model (printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import (decode_step, init_params, param_count,
+                                    prefill)
+
+    cfg = get_config(arch).replace(use_pallas_attention=pallas)
+    cfg32 = cfg.replace(dtype="float32")
+    kinds = [k for k in cfg.pattern if k != "shared_attn"]
+    n_mamba = sum(kinds[i % len(kinds)] == "mamba"
+                  for i in range(cfg.n_layers))
+    n_shared = cfg.n_super * cfg.pattern.count("shared_attn")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # the reference's analytic count leaves out each Mamba block's conv_b
+    want_params = param_count(cfg) + n_mamba * (cfg.d_inner
+                                                + 2 * cfg.ssm_state)
+    if n_params != want_params:
+        raise RuntimeError(f"{arch}: {n_params} params, not {want_params}")
+    prompt = torch.randint(0, cfg.vocab, (batch, S + 1), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    batch_in = {"tokens": prompt[:, :S]}
+    generate(cfg, params, prompt[:, :256], 2)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    run = generate(cfg, params, prompt[:, :S], SERVE_NEW)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"ssd_scan": n_mamba, "flash_attention": n_shared if pallas else 0}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise RuntimeError(f"{arch} serve: launches {launches}, want {want}")
+    logits = run.prefill_logits
+    _check_generation(arch, run, (batch, S, cfg.vocab))
+    max_logit = float(logits.abs().max())
+    out = {
+        "run": f"{arch} serve", "arch": arch, "batch": batch,
+        "prompt_len": S, "new": SERVE_NEW, "pallas_attention": pallas,
+        "params": n_params, "init_s": init_s, "prefill_s": run.prefill_s,
+        "prefill_tok_per_s": batch * S / run.prefill_s,
+        "decode_ms_per_step": 1e3 * run.decode_s / SERVE_NEW,
+        "decode_tok_per_s": batch * SERVE_NEW / run.decode_s,
+        "peak_gb": peak_gb, "max_abs_logit": max_logit,
+        "launches": launches,
+    }
+    with _attention_in_plain_version(), _ssd_in_plain_version():
+        twin, _ = prefill(cfg, params, batch_in)
+    out["max_abs_logit_diff_vs_plain_version"] = _max_abs_diff(logits, twin)
+    out["logit_diff_bound"] = SERVE_LOGIT_RTOL * max_logit
+    # the bf16 model's sensitivity: the plain versions against themselves
+    # with the scan's fp32 sums grouped in the reference's chunk of 128
+    with _attention_in_plain_version(), _ssd_in_plain_version(tile=128):
+        twin128, _ = prefill(cfg, params, batch_in)
+    out["plain_chunk_128_vs_tile_max_abs_diff"] = _max_abs_diff(twin128,
+                                                                twin)
+    out["logit_diff_bound"] = max(
+        out["logit_diff_bound"],
+        2.0 * out["plain_chunk_128_vs_tile_max_abs_diff"])
+    del twin, twin128, run
+    report = {"calls": 0, "max_err_y": 0.0, "max_err_state": 0.0}
+    with _ssd_checked_per_call(report):
+        prefill(cfg, params, batch_in)
+    if report["calls"] != n_mamba:
+        raise RuntimeError(f"{arch}: {report['calls']} scan calls checked, "
+                           f"want {n_mamba}")
+    out["per_call_check"] = report
+    k32, _ = prefill(cfg32, params, batch_in)
+    with _attention_in_plain_version(), _ssd_in_plain_version():
+        p32, _ = prefill(cfg32, params, batch_in)
+    out["fp32_max_abs_logit"] = float(p32.abs().max())
+    out["fp32_max_abs_diff"] = _max_abs_diff(k32, p32)
+    out["kernel_path_max_err_vs_fp32"] = _max_abs_diff(logits, p32)
+    del k32, p32, logits
+    # the state after S tokens, continued by one decode step, against the
+    # prefill of S + 1 tokens
+    _, cache = prefill(cfg32, params, batch_in, cache_len=S + 1,
+                       cache_dtype=torch.float32)
+    pos = torch.full((batch,), S, dtype=torch.int64, device="cuda")
+    step, _ = decode_step(cfg32, params, cache, prompt[:, S:], pos)
+    del cache
+    full, _ = prefill(cfg32, params, {"tokens": prompt})
+    out["fp32_continuation_max_abs_diff"] = float(
+        (step[:, 0].float() - full[:, -1].float()).abs().max())
+    del step, full
+    out["decode_profile"] = profile_decode(cfg, params, prompt[:, :S])
+    log(json.dumps({"serve": out}))
+
+    if not out["max_abs_logit_diff_vs_plain_version"] <= out[
+            "logit_diff_bound"]:
+        raise RuntimeError(
+            f"{arch} serve: prefill logits differ from the kernels' plain "
+            f"versions by {out['max_abs_logit_diff_vs_plain_version']:.4g} "
+            f"> {out['logit_diff_bound']:.4g}")
+    for key in ("fp32_max_abs_diff", "fp32_continuation_max_abs_diff"):
+        if not out[key] <= FP32_LOGIT_TOL:
+            raise RuntimeError(f"{arch} serve: {key} {out[key]:.4g} > "
+                               f"{FP32_LOGIT_TOL}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -806,7 +1119,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_fed_agg(gen, part), check_fed_agg_apply(gen, part),
             *check_int8(gen, part), check_topk_mask(gen, part),
-            check_flash_attention(gen, part)]
+            check_flash_attention(gen, part), check_ssd_scan(gen, part)]
+    log(f"phase 2 done at {time.perf_counter() - T0:.1f} s")
 
     fedlesscan = run_main_path("fedlesscan")
     fedadam = run_main_path("fedavg+fedadam", strategy="fedavg",
@@ -820,11 +1134,17 @@ def main() -> int:
         compress_topk_ratio=TOPK_RATIO,
         ratio=round(4 * MAIN_P / (8 * CODEC_KS[-1]), 4))
     profile_local_training()
-    serve = run_serve(rows[-1])
+    log(f"FL runs done at {time.perf_counter() - T0:.1f} s")
+    serve = run_serve(rows[-2])
+    log(f"{SERVE_ARCH} serve done at {time.perf_counter() - T0:.1f} s")
+    ssm_serves = []
+    for spec in SSM_SERVES:
+        ssm_serves.append(run_ssm_serve(*spec))
+        log(f"{spec[0]} serve done at {time.perf_counter() - T0:.1f} s")
     # which run's launches each kernel's row reports
     runs = {"fed_agg": fedlesscan, "fed_agg_apply": fedadam,
             "int8_encode": int8, "int8_decode": int8, "topk_mask": topk,
-            "flash_attention": serve}
+            "flash_attention": serve, "ssd_scan": ssm_serves[0]}
     for row in rows:
         run = runs[row["name"]]
         row["launches"] = run["launches"][row["name"]]

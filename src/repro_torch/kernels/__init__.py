@@ -9,6 +9,8 @@
                    topk_encode (core/compress.py)
   flash_attention — causal / sliding-window / soft-capped GQA attention
                    with an online softmax (models/attention.py)
+  ssd_scan       — Mamba2 SSD chunked scan with the state carried inside
+                   the block, and the final state (models/ssm.py)
 """
 from .compress import (int8_decode, int8_decode_plain, int8_encode,
                        int8_encode_plain, topk_decode, topk_encode, topk_mask,
@@ -16,9 +18,10 @@ from .compress import (int8_decode, int8_decode_plain, int8_encode,
 from .fed_agg import (APPLY_OPTS, fed_agg, fed_agg_apply,
                       fed_agg_apply_plain, fed_agg_plain)
 from .flash_attention import flash_attention, flash_attention_plain
+from .ssd_scan import ssd_scan, ssd_scan_plain
 
 KERNELS = (fed_agg, fed_agg_apply, int8_encode, int8_decode, topk_mask,
-           flash_attention)
+           flash_attention, ssd_scan)
 
 
 def reset_launches() -> None:
@@ -31,5 +34,6 @@ __all__ = ["APPLY_OPTS", "KERNELS", "fed_agg",
            "fed_agg_apply", "fed_agg_apply_plain", "fed_agg_plain",
            "flash_attention", "flash_attention_plain",
            "int8_decode", "int8_decode_plain", "int8_encode",
-           "int8_encode_plain", "reset_launches", "topk_decode",
+           "int8_encode_plain", "reset_launches", "ssd_scan",
+           "ssd_scan_plain", "topk_decode",
            "topk_encode", "topk_mask", "topk_mask_plain", "topk_select"]

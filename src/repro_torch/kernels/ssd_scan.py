@@ -1,0 +1,177 @@
+"""Mamba2 SSD chunked scan (state-space duality), forward only, in fp32.
+
+With x (b, l, h, p) already scaled by dt, a_dt (b, l, h) = A·dt (≤ 0) and
+B, C (b, l, h, n), the scan is the recurrence
+    state_t = exp(a_t)·state_{t-1} + x_t ⊗ B_t ;  y_t = state_t · C_t
+computed chunk by chunk, as the Pallas TPU kernel of the JAX package's
+kernels/ssd_scan.py (``_ssd_kernel``) computes it: within a chunk, with
+a_cum = cumsum(a),
+    L = exp(where(i ≥ j, a_cum[i] − a_cum[j], −1e30))
+    y = ((C·Bᵀ) ⊙ L)·x + exp(a_cum)·(C·stateᵀ)
+    state ← exp(a_cum[-1])·state + xᵀ·(B ⊙ exp(a_cum[-1] − a_cum))
+from a zero state.  y is (b, l, h, p) in x's dtype; with ``return_state``
+the fp32 (b, h, p, n) state after the last position comes back beside it
+(``ssd_chunked``'s ``final_state``, the scratch the Pallas kernel carries
+to its last grid step), which prefill keeps as the decode cache.
+
+``ssd_scan`` checks its inputs, then runs the plain PyTorch version beside
+it on a CPU tensor or launches the hand-written CUDA kernel
+(``csrc/ssd_scan.cu``) on a CUDA tensor; any other device raises.  It
+counts its kernel launches in its ``launches`` attribute.  ``chunk`` is the
+plain version's chunk (the sequence is padded up to a multiple of it with
+x = 0 and a_dt = 0, which leaves the state exact); the kernel walks the
+sequence in its own tiles of ``TILE`` = 64 positions and masks the tail.
+The two compute the same function in fp32 and agree to rounding, not bit
+for bit.
+The kernel reads x, B and C with any batch, time and head strides as long
+as the last dimension is contiguous, so the head-broadcast views of B and
+C that models/ssm.py passes (head stride 0) are read in place.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple, Union
+
+import torch
+
+from . import build
+
+NEG = -1e30                  # the mask value of the reference kernel
+MAX_STATE = 128              # the kernel pads n to 32, 64 or 128
+TILE = 64                    # positions of one of the kernel's tiles
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "ssd_scan_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+                        _int, _int, *([_ll] * 12), _int, _int, _vp],
+}
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built at first use, with its C signature."""
+    return build.bind("ssd_scan", _SIGNATURES)
+
+
+def _check(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
+           C: torch.Tensor, chunk: int) -> None:
+    if x.dim() != 4 or a_dt.dim() != 3 or B.dim() != 4 or C.dim() != 4:
+        raise ValueError(f"x must be (b, l, h, p), a_dt (b, l, h) and B, C "
+                         f"(b, l, h, n), got {tuple(x.shape)}, "
+                         f"{tuple(a_dt.shape)}, {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}")
+    b, l, h, p = x.shape
+    if tuple(a_dt.shape) != (b, l, h):
+        raise ValueError(f"a_dt must be ({b}, {l}, {h}), got "
+                         f"{tuple(a_dt.shape)}")
+    if tuple(B.shape[:3]) != (b, l, h) or tuple(C.shape) != tuple(B.shape):
+        raise ValueError(f"B and C must be ({b}, {l}, {h}, n), got "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    if min(b, l, h, p, B.shape[3]) < 1:
+        raise ValueError(f"empty ssd_scan input {tuple(x.shape)}, "
+                         f"{tuple(B.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"x, B and C must share a dtype, got {x.dtype}, "
+                        f"{B.dtype}, {C.dtype}")
+    if not a_dt.is_floating_point():
+        raise TypeError(f"a_dt must be floating point, got {a_dt.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan runs on cpu or cuda tensors, got "
+                         f"{x.device}")
+    if any(t.device != x.device for t in (a_dt, B, C)):
+        raise ValueError(f"x on {x.device}, a_dt on {a_dt.device}, B on "
+                         f"{B.device}, C on {C.device}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+
+def ssd_scan_plain(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
+                   C: torch.Tensor, chunk: int = 128,
+                   return_state: bool = False,
+                   init_state: Optional[torch.Tensor] = None
+                   ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Plain version of ``ssd_scan``: the chunked algorithm in fp32
+    throughout, chunk = min(chunk, l), l padded up to a multiple of it.
+    ``init_state`` (b, h, p, n) is the state entering the first chunk
+    (zero when None); ``models.ssm.ssd_chunked`` passes it."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, l)
+    c = -(-l // q)
+    pad = c * q - l
+    xf, af, Bf, Cf = x.float(), a_dt.float(), B.float(), C.float()
+    if pad:
+        xf, Bf, Cf = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                      for t in (xf, Bf, Cf))
+        af = torch.nn.functional.pad(af, (0, 0, 0, pad))
+    xc = xf.reshape(b, c, q, h, p)
+    Bc = Bf.reshape(b, c, q, h, n)
+    Cc = Cf.reshape(b, c, q, h, n)
+    a_cum = torch.cumsum(af.reshape(b, c, q, h).permute(0, 3, 1, 2), dim=-1)
+
+    # intra-chunk term: (C·Bᵀ ⊙ L)·x
+    seg = a_cum[..., :, None] - a_cum[..., None, :]          # (b,h,c,q,q)
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(mask, seg, NEG))
+    scores = torch.einsum("bcihn,bcjhn->bhcij", Cc, Bc) * L
+    y = torch.einsum("bhcij,bcjhp->bcihp", scores, xc)
+
+    # each chunk's own contribution to the state it hands on
+    decay_out = torch.exp(a_cum[..., -1:] - a_cum)           # (b,h,c,q)
+    chunk_states = torch.einsum("bcqhn,bhcq,bcqhp->bchpn", Bc, decay_out, xc)
+    chunk_decay = torch.exp(a_cum[..., -1])                  # (b,h,c)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    entering = []
+    for ci in range(c):
+        entering.append(state)
+        state = state * chunk_decay[:, :, ci, None, None] + chunk_states[:, ci]
+    entering = torch.stack(entering, dim=1)                  # (b,c,h,p,n)
+
+    # the state entering each chunk, decayed to each position:
+    # exp(a_cum)·C·stateᵀ
+    y = y + torch.einsum("bcqhn,bchpn,bhcq->bcqhp", Cc, entering,
+                         torch.exp(a_cum))
+    y = y.reshape(b, c * q, h, p)[:, :l].to(x.dtype)
+    return (y, state) if return_state else y
+
+
+def ssd_scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, chunk: int = 128, return_state: bool = False
+             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The SSD scan of x (b, l, h, p), a_dt (b, l, h), B and C (b, l, h, n),
+    x, B and C float32 or bfloat16 on one device → a fresh (b, l, h, p)
+    tensor in x's dtype, and with ``return_state`` the fp32 (b, h, p, n)
+    final state.  On the card n must be at most 128 and the last dimension
+    of x, B and C contiguous."""
+    _check(x, a_dt, B, C, chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, a_dt, B, C, chunk, return_state)
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    if n > MAX_STATE:
+        raise ValueError(f"the kernel takes state dims up to {MAX_STATE}, "
+                         f"got {n}")
+    if any(t.stride(-1) != 1 for t in (x, B, C)):
+        raise ValueError("x, B and C must be contiguous in their last dim")
+    a = a_dt.float()
+    lib = _library()
+    y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
+    state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+             if return_state else None)
+    strides = [st for t in (x, a, B, C) for st in t.stride()[:3]]
+    code = lib.ssd_scan_launch(
+        x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+        state.data_ptr() if return_state else None, b, l, h, p, n, *strides,
+        _DTYPE_CODES[x.dtype], x.device.index or 0, build.stream(x))
+    build.check_status(lib, "ssd_scan", code, "ssd_scan")
+    ssd_scan.launches += 1
+    return (y, state) if return_state else y
+
+
+ssd_scan.launches = 0

@@ -1,18 +1,26 @@
-"""Serving: prefill a batch of prompts, then decode tokens from the KV
-cache, on the card.  The port of the JAX package's examples/serve_decode.py.
+"""Serving: prefill a batch of prompts, then decode tokens from the cache
+(KV for attention blocks, conv window and SSM state for Mamba blocks), on
+the card.  The port of the JAX package's examples/serve_decode.py.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --new 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch gemma2-2b --pallas-attention
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --full-width --pallas-attention --prompt-len 5120 --new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch zamba2-1.2b --pallas-attention
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --full-width --batch 4 --prompt-len 4096 --new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --full-width --pallas-attention --prompt-len 4096 --new 32
 
 Weights are random, made from seed 0 (the prompt from seed 1).  Without
 ``--full-width`` the config is its ``.reduced()`` smoke variant, as in the
-reference example.
+reference example.  Mamba blocks run their prefill scan in the
+hand-written ``ssd_scan`` kernel.
 ``--pallas-attention`` sets the config's ``use_pallas_attention``: prefill
-attention then runs in the hand-written ``flash_attention`` kernel.
-``--device`` defaults to ``cuda``.
+attention (zamba2's shared block included) then runs in the hand-written
+``flash_attention`` kernel.  ``--device`` defaults to ``cuda``.
 """
 from __future__ import annotations
 

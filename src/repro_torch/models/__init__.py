@@ -1,7 +1,10 @@
 from .config import ArchConfig, param_count
 from .small import ModelDef, make_cnn
+from .ssm import (init_mamba_cache, mamba_block, mamba_decode_step,
+                  ssd_chunked)
 from .transformer import (decode_step, forward, init_cache, init_params,
                           prefill)
 
 __all__ = ["ArchConfig", "ModelDef", "decode_step", "forward", "init_cache",
-           "init_params", "make_cnn", "param_count", "prefill"]
+           "init_mamba_cache", "init_params", "make_cnn", "mamba_block",
+           "mamba_decode_step", "param_count", "prefill", "ssd_chunked"]

@@ -1,13 +1,15 @@
 """Decoder backbone: the port of the JAX package's models/transformer.py
-for the dense attention block kinds ``attn`` and ``local``.
+for the block kinds ``attn``, ``local``, ``mamba`` (Mamba2, models/ssm.py)
+and ``shared_attn`` (Zamba2's weight-tied full-attention block).
 
 Params keep the reference's tree: the layer stack is ``n_super``
 superblocks (one repetition of cfg.pattern) whose params are stacked on a
 leading axis under ``params["blocks"]["pos{i}"]``, plus an unrolled
 remainder of ``n_layers % period`` leading pattern positions under
-``params["rem"]``.  ``lax.scan`` over the stack becomes a Python loop.
-Block kinds ``mamba``, ``shared_attn`` and ``cross``, mixtures of experts
-and codebooks are not ported yet (ROADMAP Queue 1.9): every entry point
+``params["rem"]``; ``shared_attn`` positions hold no params of their own
+and all read ``params["shared_attn"]``.  ``lax.scan`` over the stack
+becomes a Python loop.  Block kind ``cross``, mixtures of experts and
+codebooks are not ported yet (ROADMAP Queue 1.9): every entry point
 raises ``NotImplementedError`` for such a config.
 
 Entry points:
@@ -19,8 +21,9 @@ Entry points:
 
 Params live on the device of the ``torch.Generator`` that made them (or of
 the tensors loaded with ``convert.params_from_numpy``); batches and caches
-live beside them.  ``decode_step`` writes the new token's keys and values
-into the cache tensors in place.
+live beside them.  ``decode_step`` writes the new token's keys and values,
+and the Mamba blocks' conv windows and SSM states, into the cache tensors
+in place.
 """
 from __future__ import annotations
 
@@ -34,10 +37,11 @@ from .attention import (attn_init, decode_self_attention, init_kv_cache,
 from .config import ArchConfig
 from .layers import (dtype_of, embed_init, gated_mlp, gated_mlp_init,
                      he_init, rms_norm, softcap)
+from .ssm import init_mamba_cache, mamba_block, mamba_decode_step, mamba_init
 
 Pytree = Any
 
-PORTED_KINDS = ("attn", "local")
+PORTED_KINDS = ("attn", "local", "mamba", "shared_attn")
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -68,6 +72,9 @@ def _slice(tree: Pytree, s: int) -> Pytree:
 def _block_init(gen: torch.Generator, kind: str, cfg: ArchConfig,
                 dtype) -> Pytree:
     D = cfg.d_model
+    if kind == "mamba":
+        return {"ln1": torch.zeros((D,), dtype=dtype, device=gen.device),
+                "mamba": mamba_init(gen, cfg, dtype)}
     return {"ln1": torch.zeros((D,), dtype=dtype, device=gen.device),
             "attn": attn_init(gen, cfg, dtype),
             "ln2": torch.zeros((D,), dtype=dtype, device=gen.device),
@@ -83,6 +90,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
     params: Dict[str, Any] = {"embed": embed_init(gen, (V, D), dtype)}
     blocks: Dict[str, Any] = {}
     for i, kind in enumerate(cfg.pattern):
+        if kind == "shared_attn":
+            continue
         stack = [_block_init(gen, kind, cfg, dtype)
                  for _ in range(cfg.n_super)]
         blocks[f"pos{i}"] = tree_map(lambda *xs: torch.stack(xs), *stack)
@@ -93,6 +102,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
            for j in range(cfg.n_rem)}
     if rem:
         params["rem"] = rem
+    if "shared_attn" in cfg.pattern:
+        params["shared_attn"] = _block_init(gen, "attn", cfg, dtype)
     params["final_norm"] = torch.zeros((D,), dtype=dtype, device=gen.device)
     if not cfg.tie_embeddings:
         params["head"] = he_init(gen, (D, V), D, dtype)
@@ -100,22 +111,39 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
 
 
 # ============================================================ block fwd
-def _window(kind: str, cfg: ArchConfig) -> Optional[int]:
-    return cfg.window if kind == "local" else None
+def _window(kind: str, cfg: ArchConfig,
+            window_override: Optional[int] = None) -> Optional[int]:
+    return cfg.window if kind == "local" else window_override
+
+
+def _at(cfg: ArchConfig, i: int, params_i: Pytree,
+        shared: Optional[Pytree]) -> Tuple[str, Pytree, Optional[int]]:
+    """Pattern position i's block kind, params and window override: a
+    ``shared_attn`` position is an ``attn`` block on the weight-tied
+    params, windowed only when .long_context() set one."""
+    if cfg.pattern[i] == "shared_attn":
+        return "attn", shared, cfg.shared_attn_window or None
+    return cfg.pattern[i], params_i[f"pos{i}"], None
 
 
 def _apply_block(kind: str, p: Pytree, x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor,
+                 window_override: Optional[int] = None) -> torch.Tensor:
+    if kind == "mamba":
+        return x + mamba_block(p["mamba"],
+                               rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + self_attention(p["attn"], h, positions, cfg, _window(kind, cfg))
+    x = x + self_attention(p["attn"], h, positions, cfg,
+                           _window(kind, cfg, window_override))
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + gated_mlp(p["mlp"], h2, cfg.act)
 
 
-def _superblock(params_i: Pytree, x: torch.Tensor, cfg: ArchConfig,
-                positions: torch.Tensor) -> torch.Tensor:
-    for i, kind in enumerate(cfg.pattern):
-        x = _apply_block(kind, params_i[f"pos{i}"], x, cfg, positions)
+def _superblock(params_i: Pytree, shared: Optional[Pytree], x: torch.Tensor,
+                cfg: ArchConfig, positions: torch.Tensor) -> torch.Tensor:
+    for i in range(len(cfg.pattern)):
+        kind, p, window = _at(cfg, i, params_i, shared)
+        x = _apply_block(kind, p, x, cfg, positions, window)
     return x
 
 
@@ -145,8 +173,10 @@ def forward(cfg: ArchConfig, params: Pytree,
     tokens = batch["tokens"]
     positions = _positions(tokens)
     x = _embed(params, tokens, dtype_of(cfg.dtype))
+    shared = params.get("shared_attn")
     for s in range(cfg.n_super):
-        x = _superblock(_slice(params["blocks"], s), x, cfg, positions)
+        x = _superblock(_slice(params["blocks"], s), shared, x, cfg,
+                        positions)
     positions_rem = _layer_positions(cfg)
     for j in range(cfg.n_rem):
         i = positions_rem[j]
@@ -159,7 +189,14 @@ def forward(cfg: ArchConfig, params: Pytree,
 # ============================================================ caches
 def _block_cache(kind: str, cfg: ArchConfig, batch: int, context: int,
                  dtype=torch.bfloat16, device=None) -> Pytree:
-    length = min(cfg.window, context) if kind == "local" else context
+    if kind == "mamba":
+        return init_mamba_cache(cfg, batch, torch.float32, device)
+    if kind == "local":
+        length = min(cfg.window, context)
+    elif kind == "shared_attn" and cfg.shared_attn_window:
+        length = min(cfg.shared_attn_window, context)
+    else:
+        length = context
     return init_kv_cache(cfg, batch, length, dtype, device)
 
 
@@ -184,9 +221,14 @@ def init_cache(cfg: ArchConfig, batch: int, context: int,
 
 # ============================================================ prefill
 def _prefill_block(kind: str, p: Pytree, x: torch.Tensor, cfg: ArchConfig,
-                   positions: torch.Tensor, cache_dtype, cache_len: int
+                   positions: torch.Tensor, cache_dtype, cache_len: int,
+                   window_override: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Pytree]:
-    window = _window(kind, cfg)
+    if kind == "mamba":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, c = mamba_block(p["mamba"], h, cfg, return_cache=True)
+        return x + y, c
+    window = _window(kind, cfg, window_override)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     y, (k, v) = self_attention(p["attn"], h, positions, cfg, window,
                                return_kv=True)
@@ -205,22 +247,24 @@ def prefill(cfg: ArchConfig, params: Pytree, batch: Dict[str, torch.Tensor],
             cache_len: Optional[int] = None,
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Pytree]:
     """Inference prefill: full-sequence forward that also emits the decode
-    cache (KV per attention block in ring/linear layout)."""
+    cache (KV per attention block in ring/linear layout, fp32 conv windows
+    and SSM states for Mamba blocks)."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     S = tokens.shape[-1]
     cache_len = cache_len or S
     positions = _positions(tokens)
     x = _embed(params, tokens, dtype_of(cfg.dtype))
+    shared = params.get("shared_attn")
 
     per_super = []
     for s in range(cfg.n_super):
         params_i = _slice(params["blocks"], s)
         new_cache = {}
-        for i, kind in enumerate(cfg.pattern):
+        for i in range(len(cfg.pattern)):
+            kind, p, window = _at(cfg, i, params_i, shared)
             x, new_cache[f"pos{i}"] = _prefill_block(
-                kind, params_i[f"pos{i}"], x, cfg, positions, cache_dtype,
-                cache_len)
+                kind, p, x, cfg, positions, cache_dtype, cache_len, window)
         per_super.append(new_cache)
     cache: Dict[str, Any] = {}
     if per_super:
@@ -241,11 +285,16 @@ def prefill(cfg: ArchConfig, params: Pytree, batch: Dict[str, torch.Tensor],
 
 # ============================================================ decode
 def _decode_block(kind: str, p: Pytree, x: torch.Tensor, blk_cache: Pytree,
-                  pos: torch.Tensor, cfg: ArchConfig
+                  pos: torch.Tensor, cfg: ArchConfig,
+                  window_override: Optional[int] = None
                   ) -> Tuple[torch.Tensor, Pytree]:
+    if kind == "mamba":
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        y, new_cache = mamba_decode_step(p["mamba"], h, blk_cache, cfg)
+        return x + y, new_cache
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     y, kv = decode_self_attention(p["attn"], h, blk_cache, pos, cfg,
-                                  _window(kind, cfg))
+                                  _window(kind, cfg, window_override))
     x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + gated_mlp(p["mlp"], h2, cfg.act), kv
@@ -258,12 +307,14 @@ def decode_step(cfg: ArchConfig, params: Pytree, cache: Pytree,
     are updated in place; the same tree is returned."""
     _check_ported(cfg)
     x = _embed(params, tokens, dtype_of(cfg.dtype))
+    shared = params.get("shared_attn")
     for s in range(cfg.n_super):
         params_i = _slice(params["blocks"], s)
         cache_i = _slice(cache["blocks"], s)     # views into the stack
-        for i, kind in enumerate(cfg.pattern):
-            x, _ = _decode_block(kind, params_i[f"pos{i}"], x,
-                                 cache_i[f"pos{i}"], pos, cfg)
+        for i in range(len(cfg.pattern)):
+            kind, p, window = _at(cfg, i, params_i, shared)
+            x, _ = _decode_block(kind, p, x, cache_i[f"pos{i}"], pos, cfg,
+                                 window)
     positions_rem = _layer_positions(cfg)
     for j in range(cfg.n_rem):
         i = positions_rem[j]

@@ -16,6 +16,7 @@ from repro_torch.kernels.fed_agg import (APPLY_OPTS, fed_agg, fed_agg_apply,
                                          fed_agg_apply_plain, fed_agg_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 HYPER = (0.1, 0.8, 0.9, 0.99, 1e-3)          # lr, mix, b1, b2, eps
 BF16_ULP = 2.0 ** -7                          # bf16 keeps 8 significant bits
@@ -174,3 +175,64 @@ def test_generate_with_kernel_matches_plain_path_on_card():
     assert torch.equal(kern.tokens, plain.tokens)
     torch.testing.assert_close(kern.prefill_logits, plain.prefill_logits,
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_matches_plain_on_card(dtype):
+    """The kernel against its plain version, y and the final state, at
+    l = 1, a ragged l, p not a multiple of 16 and n of 8, 64 and 128,
+    with contiguous and head-broadcast B and C; fp32 within 1e-4, bf16
+    within one bf16 ulp plus 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=BF16_ULP, atol=1e-3))
+    rng = np.random.default_rng(8)
+    for (b, l, h, p, n, broadcast) in ((1, 1, 2, 16, 8, False),
+                                       (2, 129, 3, 40, 64, True),
+                                       (2, 300, 4, 64, 128, True),
+                                       (1, 64, 2, 64, 128, False)):
+        x = torch.from_numpy(rng.normal(size=(b, l, h, p)).astype(
+            np.float32) * 0.5).to("cuda", dtype)
+        a = -torch.from_numpy(np.abs(rng.normal(size=(b, l, h))).astype(
+            np.float32) * 0.3).cuda()
+        B, C = (torch.from_numpy(rng.normal(
+            size=(b, l, 1 if broadcast else h, n)).astype(np.float32)
+            * 0.5).to("cuda", dtype).expand(b, l, h, n) for _ in range(2))
+        before = ssd_scan.launches
+        y, state = ssd_scan(x, a, B, C, return_state=True)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == before + 1
+        want_y, want_state = ssd_scan_plain(x, a, B, C, return_state=True)
+        torch.testing.assert_close(y, want_y, **tol)
+        torch.testing.assert_close(state, want_state, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mamba_models_generate_on_card_as_on_cpu():
+    """Reduced mamba2-130m and zamba2-1.2b served on the card (the scan
+    in the kernel, one launch a Mamba layer) give the greedy tokens and
+    prefill logits of the same params served on the CPU (plain
+    versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params
+
+    for arch in ("mamba2-130m", "zamba2-1.2b"):
+        cfg = get_config(arch).reduced().replace(use_pallas_attention=True)
+        params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
+        prompt = torch.randint(0, cfg.vocab, (2, 100), device="cuda",
+                               generator=torch.Generator("cuda")
+                               .manual_seed(1))
+        before = ssd_scan.launches
+        card = generate(cfg, params, prompt, 8)
+        assert ssd_scan.launches == before + cfg.n_layers
+        cpu = generate(cfg, tree_map(lambda t: t.cpu(), params),
+                       prompt.cpu(), 8)
+        assert torch.equal(card.tokens.cpu(), cpu.tokens)
+        torch.testing.assert_close(card.prefill_logits.cpu(),
+                                   cpu.prefill_logits, rtol=1e-4, atol=1e-4)

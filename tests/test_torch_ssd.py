@@ -1,0 +1,162 @@
+"""The port's ssd_scan against the JAX package's.
+
+On the CPU the wrapper runs its plain version (the chunked algorithm in
+fp32); the JAX side runs its Pallas kernel in interpret mode
+(repro.kernels.ssd_scan, as tests/test_kernels.py runs it), its
+sequential oracle ref.ssd_ref and the model's chunked form
+models.ssm.ssd_chunked.  The same numpy inputs, at the JAX tests' scales,
+go to all of them.  Tolerances: against the Pallas kernel and the oracle
+the JAX tests' own, 2e-4 in fp32 and 6e-2 in bf16; against ssd_chunked,
+which computes the same chunked sums in fp32, 1e-5 for y and the final
+state.  The CUDA kernel itself is held against the plain version in
+test_torch_cuda.py and chip_smoke.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ssd_scan as jax_ssd_scan
+from repro.kernels.ref import ssd_ref
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels import KERNELS, reset_launches
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.models import ssd_chunked
+
+TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
+CHUNKED_TOL = 1e-5
+JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+# (b, l, h, p, n, chunk): the JAX tests' shapes, then l = 1, 100 and 129
+SHAPES = [(1, 64, 2, 16, 8, 32), (2, 128, 4, 32, 16, 64),
+          (1, 96, 1, 8, 4, 32), (1, 256, 2, 64, 128, 128),
+          (2, 1, 3, 16, 8, 32), (2, 100, 3, 16, 8, 32),
+          (1, 129, 2, 32, 16, 64)]
+
+
+def _inputs(b, l, h, p, n, seed):
+    """x, a_dt, B, C at the JAX tests' scales (a_dt ≤ 0)."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, l, h, p)).astype(np.float32) * 0.5,
+            -np.abs(rng.normal(size=(b, l, h))).astype(np.float32) * 0.3,
+            rng.normal(size=(b, l, h, n)).astype(np.float32) * 0.5,
+            rng.normal(size=(b, l, h, n)).astype(np.float32) * 0.5)
+
+
+def _torch(arrays, dtype):
+    x, a, B, C = (torch.from_numpy(t) for t in arrays)
+    return x.to(dtype), a, B.to(dtype), C.to(dtype)
+
+
+def _jax(arrays, dtype):
+    x, a, B, C = arrays
+    return (jnp.asarray(x, JAX_DTYPE[dtype]), jnp.asarray(a),
+            jnp.asarray(B, JAX_DTYPE[dtype]), jnp.asarray(C, JAX_DTYPE[dtype]))
+
+
+def _close(got: torch.Tensor, want, tol: float) -> None:
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,n,chunk", SHAPES)
+def test_ssd_scan_matches_jax(b, l, h, p, n, chunk, dtype):
+    """The CPU wrapper (its plain version) against the interpret-mode
+    Pallas kernel and the sequential oracle; no launch on the CPU."""
+    arrays = _inputs(b, l, h, p, n, seed=l + n)
+    args, jargs = _torch(arrays, dtype), _jax(arrays, dtype)
+    reset_launches()
+    got = ssd_scan(*args, chunk=chunk)
+    assert ssd_scan.launches == 0
+    assert got.dtype == dtype and got.shape == (b, l, h, p)
+    assert torch.equal(got, ssd_scan_plain(*args, chunk=chunk))
+    _close(got, jax_ssd_scan(*jargs, chunk=chunk), TOL[dtype])
+    _close(got, ssd_ref(*jargs), TOL[dtype])
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk,ref_chunk", [
+    (1, 64, 2, 16, 8, 32, 32), (2, 128, 4, 32, 16, 64, 64),
+    (1, 256, 2, 64, 128, 128, 128), (2, 1, 3, 16, 8, 32, 1),
+    (2, 100, 3, 16, 8, 32, 50), (1, 129, 2, 32, 16, 64, 43)])
+def test_return_state_matches_ssd_chunked(b, l, h, p, n, chunk, ref_chunk):
+    """y and the fp32 final state against ssd_chunked's (y, final_state);
+    a ragged l is padded by the wrapper and cut into ssd_chunked's
+    divisor chunks on the JAX side, so the padded tail must leave the
+    state exact."""
+    arrays = _inputs(b, l, h, p, n, seed=2 * l + n)
+    y, state = ssd_scan(*_torch(arrays, torch.float32), chunk=chunk,
+                        return_state=True)
+    want_y, want_state = jax_ssd_chunked(*_jax(arrays, torch.float32),
+                                         chunk=ref_chunk)
+    assert state.dtype == torch.float32 and state.shape == (b, h, p, n)
+    _close(y, want_y, CHUNKED_TOL)
+    _close(state, want_state, CHUNKED_TOL)
+
+
+def test_ssd_chunked_matches_jax_from_a_state():
+    """The port's ssd_chunked, the reference's signature, from a nonzero
+    init_state; it refuses a length that its chunk does not divide."""
+    arrays = _inputs(2, 96, 3, 16, 8, seed=3)
+    s0 = np.random.default_rng(4).normal(size=(2, 3, 16, 8)).astype(
+        np.float32)
+    y, state = ssd_chunked(*_torch(arrays, torch.float32), chunk=32,
+                           init_state=torch.from_numpy(s0))
+    want_y, want_state = jax_ssd_chunked(*_jax(arrays, torch.float32),
+                                         chunk=32,
+                                         init_state=jnp.asarray(s0))
+    _close(y, want_y, CHUNKED_TOL)
+    _close(state, want_state, CHUNKED_TOL)
+    with pytest.raises(ValueError, match="not divisible"):
+        ssd_chunked(*_torch(arrays, torch.float32), chunk=40)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_broadcast_b_and_c_read_as_copies(dtype):
+    """models/ssm.py passes B and C as head-broadcast views (head stride
+    0); the result equals that of contiguous copies and the JAX kernel's
+    on the broadcast arrays."""
+    b, l, h, p, n = 2, 100, 4, 16, 8
+    x, a, B, C = _inputs(b, l, h, p, n, seed=5)
+    B1, C1 = B[:, :, :1, :], C[:, :, :1, :]
+    tB = torch.from_numpy(B1).to(dtype).expand(b, l, h, n)
+    tC = torch.from_numpy(C1).to(dtype).expand(b, l, h, n)
+    assert tB.stride(2) == 0
+    tx = torch.from_numpy(x).to(dtype)
+    ta = torch.from_numpy(a)
+    got, state = ssd_scan(tx, ta, tB, tC, chunk=32, return_state=True)
+    want, want_state = ssd_scan(tx, ta, tB.contiguous(), tC.contiguous(),
+                                chunk=32, return_state=True)
+    assert torch.equal(got, want) and torch.equal(state, want_state)
+    Bb, Cb = np.broadcast_to(B1, B.shape), np.broadcast_to(C1, C.shape)
+    _close(got, jax_ssd_scan(*_jax((x, a, Bb, Cb), dtype), chunk=32),
+           TOL[dtype])
+
+
+def test_input_checks():
+    x, a, B, C = _torch(_inputs(1, 8, 2, 4, 3, seed=0), torch.float32)
+    with pytest.raises(ValueError, match="b, l, h, p"):
+        ssd_scan(x[0], a, B, C)
+    with pytest.raises(ValueError, match="a_dt must be"):
+        ssd_scan(x, a[:, :4], B, C)
+    with pytest.raises(ValueError, match="B and C must be"):
+        ssd_scan(x, a, B, C[..., :2])
+    with pytest.raises(ValueError, match="empty"):
+        ssd_scan(x[..., :0], a, B, C)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_scan(x.half(), a, B.half(), C.half())
+    with pytest.raises(TypeError, match="share a dtype"):
+        ssd_scan(x, a, B.to(torch.bfloat16), C)
+    with pytest.raises(TypeError, match="floating point"):
+        ssd_scan(x, a.long(), B, C)
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        ssd_scan(x.to("meta"), a.to("meta"), B.to("meta"), C.to("meta"))
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan(x, a, B, C, chunk=0)
+
+
+def test_kernel_is_registered():
+    assert ssd_scan in KERNELS
+    ssd_scan.launches = 5
+    reset_launches()
+    assert ssd_scan.launches == 0

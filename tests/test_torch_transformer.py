@@ -19,55 +19,24 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.configs import list_architectures as jax_list_architectures
 from repro.models import config as jax_config
-from repro.models import decode_step as jax_decode_step
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
 from repro.models import layers as jax_layers
-from repro.models import prefill as jax_prefill
 from repro.models.attention import self_attention as jax_self_attention
 from repro_torch.configs import get_config, list_architectures
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels import flash_attention, reset_launches
 from repro_torch.launch.serve import generate
-from repro_torch.models import (decode_step, forward, init_cache,
-                                init_params, param_count, prefill)
+from repro_torch.models import forward, init_cache, init_params, param_count
 from repro_torch.models import layers
 from repro_torch.models.attention import self_attention
+from torch_parity_common import (LAYER_TOL, LOGIT_TOL, check_serving_path,
+                                 close as _close, port as _port,
+                                 np_tree as _np_tree,
+                                 tree_close as _tree_close)
 
-LAYER_TOL = 1e-6
-LOGIT_TOL = 1e-4
 UNPORTED = ("arctic-480b", "llama-3.2-vision-11b",
-            "llama4-maverick-400b-a17b", "mamba2-130m", "musicgen-medium",
-            "zamba2-1.2b")
-
-
-def _np_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _port(tree):
-    return params_from_numpy(_np_tree(tree), device="cpu")
-
-
-def _close(got, want, tol):
-    np.testing.assert_allclose(got.detach().float().numpy(),
-                               np.asarray(want, np.float32),
-                               rtol=tol, atol=tol)
-
-
-def _tree_close(got, want, tol):
-    got_np = params_to_numpy(got)
-    flat_w, _ = jax.tree_util.tree_flatten_with_path(_np_tree(want))
-    for path, w in flat_w:
-        g = got_np
-        for key in path:
-            g = g[key.key]
-        np.testing.assert_allclose(g, w, rtol=tol, atol=tol,
-                                   err_msg=jax.tree_util.keystr(path))
-    assert (sorted(jax.tree_util.tree_leaves(
-        jax.tree_util.tree_map(np.shape, _np_tree(want))))
-        == sorted(jax.tree_util.tree_leaves(jax.tree_util.tree_map(
-            np.shape, got_np))))
+            "llama4-maverick-400b-a17b", "musicgen-medium")
 
 
 # ------------------------------------------------------------- configs
@@ -168,27 +137,6 @@ def test_self_attention_branches_match(branch):
 
 
 # ------------------------------------------------------------- the model
-def _jax_generate(cfg, params, prompt, new):
-    """examples/serve_decode.py's greedy loop: the prefill logits and
-    cache, every decode step's (tokens, pos, logits, cache), and the
-    generated ids (B, new)."""
-    S = prompt.shape[1]
-    logits, cache = jax_prefill(cfg, params, {"tokens": prompt},
-                                cache_len=S + new, cache_dtype=jnp.float32)
-    step = jax.jit(lambda p, c, t, pos: jax_decode_step(cfg, p, c, t, pos))
-    steps, ids = [], []
-    tok = prompt[:, -1:]
-    for i in range(new):
-        pos = jnp.full((prompt.shape[0],), S + i, jnp.int32)
-        step_logits, step_cache = step(params, cache if i == 0
-                                       else steps[-1][3], tok, pos)
-        steps.append((tok, pos, step_logits, step_cache))
-        nxt = jnp.argmax(step_logits[:, -1, :cfg.vocab], axis=-1)
-        ids.append(np.asarray(nxt))
-        tok = nxt[:, None].astype(jnp.int32)
-    return logits, cache, steps, np.stack(ids, axis=1)
-
-
 @pytest.mark.parametrize("pallas", [False, True], ids=["plain", "kernel"])
 @pytest.mark.parametrize("arch", ["gemma2-2b", "chatglm3-6b"])
 def test_serving_path_matches(arch, pallas):
@@ -197,41 +145,7 @@ def test_serving_path_matches(arch, pallas):
     prompt of 80 exceeds its reduced window of 64, so the local layers'
     ring buffer wraps; chatglm3-6b has GQA group 2, half-dim RoPE and an
     untied head."""
-    new = 8
-    jcfg = jax_get_config(arch).reduced().replace(
-        use_pallas_attention=pallas)
-    cfg = get_config(arch).reduced().replace(use_pallas_attention=pallas)
-    ref_params = jax_init_params(jcfg, jax.random.PRNGKey(0))
-    params = _port(ref_params)
-    S = 80 if arch == "gemma2-2b" else 40
-    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (2, S))
-    jprompt = jnp.asarray(prompt, jnp.int32)
-    tprompt = torch.from_numpy(prompt)
-
-    _close(forward(cfg, params, {"tokens": tprompt}),
-           jax_forward(jcfg, ref_params, {"tokens": jprompt}), LOGIT_TOL)
-
-    want_logits, want_cache, steps, want_ids = _jax_generate(
-        jcfg, ref_params, jprompt, new)
-    logits, cache = prefill(cfg, params, {"tokens": tprompt},
-                            cache_len=S + new, cache_dtype=torch.float32)
-    _close(logits, want_logits, LOGIT_TOL)
-    # the reference's cache tree, stacked blocks and all, carries over
-    carried = params_from_numpy(_np_tree(want_cache), device="cpu")
-    _tree_close(cache, want_cache, LOGIT_TOL)
-    _tree_close(carried, want_cache, 0.0)
-    for tok, pos, want_step, want_step_cache in steps[:4]:
-        step_logits, cache = decode_step(
-            cfg, params, cache, torch.from_numpy(np.array(tok)),
-            torch.from_numpy(np.array(pos)))
-        _close(step_logits, want_step, LOGIT_TOL)
-        _tree_close(cache, want_step_cache, LOGIT_TOL)
-
-    reset_launches()
-    out = generate(cfg, params, tprompt, new)
-    np.testing.assert_array_equal(out.tokens.numpy(), want_ids)
-    _close(out.prefill_logits, want_logits, LOGIT_TOL)
-    assert flash_attention.launches == 0       # no kernel on the CPU
+    check_serving_path(arch, pallas, 80 if arch == "gemma2-2b" else 40)
 
 
 def test_remainder_layers_and_init_cache():
