@@ -12,14 +12,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    compression kernels bit for bit), and timed (CUDA events; device time,
    and as the host issues the calls) beside its memory bound and a
    library yardstick where one PyTorch call computes the same function.
-3. The main paths: FedLesScan on the full-width FEMNIST CNN (3 rounds,
-   8 clients a round, 30 % stragglers), then FedAvg with the FedAdam
-   server optimizer, then FedLesScan with int8 and with top-k@1 %
-   compressed client updates, through run_experiment on "cuda".  The
+   The sharded wrappers run on two- and three-slot meshes of the one card
+   (P = 6,603,710 pads by 1 on three) and must equal the unsharded
+   kernels bit for bit (the norm within 1e-6); flash_attention is also
+   timed at Zamba2's shape, where SDPA computes the same function.
+3. The main paths on the full-width FEMNIST CNN (3 rounds, 8 clients a
+   round, 30 % stragglers) through run_experiment on "cuda", whose
+   default there is the vectorized executor.  First the executor against
+   the eager loop client by client (one local epoch, local SGD; with
+   cuDNN off within EXEC_TOL).  Then FedLesScan on the eager loop, again
+   with cuDNN off (the spread of two valid roundings, printed), and on
+   the executor; then FedAvg with the FedAdam server optimizer, FedLesScan
+   with int8 and with top-k@1 % compressed client updates, and FedLesScan
+   and FedAvg+FedAdam with executor and merge on two-slot meshes of the
+   card (fed_agg_sharded / fed_agg_apply_sharded once a merge).  Runs of
+   one configuration must agree per round (cohorts, EUR, trace bytes),
+   and in training loss and params within the spread that rounding alone
+   caused in the measured runs (FL_LOSS_RTOL, FL_PARAM_REL_L2).  The
    launch counts are set to 0 just before each run and read just after;
    the compressed runs' traces must carry the codec's compression ratio
-   in every merge.  Then one client's local training under
-   torch.profiler: the card's busy share.  Then serving: Gemma 2 (2B) at
+   in every merge.  Then one client's local training
+   and one vectorized round under torch.profiler: device operations a
+   step and the card's busy share.  Then serving: Gemma 2 (2B) at
    full width and depth (random weights from a seed) prefills 2 prompts
    of 5120 tokens through the flash_attention kernel and decodes 32
    greedy tokens (launch.serve.generate), with exactly one kernel launch
@@ -73,6 +87,23 @@ CODEC_KS = (1, 41, round(MAIN_P * TOPK_RATIO))
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-6)   # one bf16 ulp
 NORM_RTOL = 1e-5
+SHARDED_NORM_RTOL = 1e-6     # sharded norm against the unsharded kernel's
+# two FL runs of one configuration on two paths (eager loop against the
+# executor, unsharded against two-slot meshes): training losses after the
+# run within FL_LOSS_RTOL of each other and final params within
+# FL_PARAM_REL_L2 (relative L2).  315 local Adam steps a client amplify
+# rounding differences: on an H100 every pair of valid paths, the eager
+# loop against itself with cuDNN off included (printed each run as the
+# spread's yardstick), ended 1.4e-2 to 4.2e-2 apart, and the final losses
+# of FedLesScan's runs spread over 1.448 to 1.606 (PERF.md, section 6)
+FL_LOSS_RTOL = 0.2
+FL_PARAM_REL_L2 = 0.1
+# one local epoch of the full-width CNN with local SGD (no amplification),
+# executor against the eager loop, client by client: with cuDNN off the
+# params within EXEC_TOL (2.7e-6 measured on an H100, PERF.md), the
+# mean losses within EXEC_LOSS_TOL with cuDNN on or off (2.8e-5 measured)
+EXEC_TOL = dict(rtol=1e-4, atol=2e-5)
+EXEC_LOSS_TOL = 1e-3
 TIMED_RUNS = 20
 HOLD_CYCLES = 100_000_000            # ~50 ms of device sleep (see time_ms)
 # flash_attention checks: the kernel against its plain version
@@ -266,6 +297,127 @@ def check_fed_agg_apply(gen, part: str) -> dict:
         "bound_ms": bound, "bound_by": bound_by,
         "library_ms": None,     # no single PyTorch call computes it
         "shape": f"K={K} P={P} fp32 fedadam",
+    }
+    log(json.dumps({"kernel_check": row}))
+    return row
+
+
+def _meshes():
+    """The sharded checks' meshes of the one card: two slots (P splits
+    evenly) and three (P = MAIN_P pads by 1)."""
+    from repro_torch.launch.mesh import Mesh
+
+    return [Mesh(("cuda:0",) * n, (("data", n), ("model", 1)))
+            for n in (2, 3)]
+
+
+def check_fed_agg_sharded(gen, part: str) -> dict:
+    from repro_torch.kernels.fed_agg import (fed_agg, fed_agg_plain,
+                                             fed_agg_sharded)
+
+    err = 0.0
+    for mesh in _meshes():
+        for dtype, tol in ((torch.float32, FP32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            for K, P in ((1, 1), (13, 4097), (MAIN_K, MAIN_P)):
+                u = _randn((K, P), gen, dtype)
+                c = torch.rand(K, generator=gen, device="cuda")
+                got = fed_agg_sharded(u, c, mesh)
+                want = fed_agg(u, c)
+                plain = fed_agg_plain(u, c)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"fed_agg_sharded {mesh.size} slots "
+                                       f"{dtype} K={K} P={P}: differs from "
+                                       f"fed_agg")
+                torch.testing.assert_close(got, plain, **tol)
+                err = max(err, max_abs_err(got, plain))
+            log(f"fed_agg_sharded {mesh.size} slots {str(dtype)[6:]}: equal "
+                f"to fed_agg, max |err| vs plain {err:.3g}")
+    mesh = _meshes()[0]
+    u = _randn((MAIN_K, MAIN_P), gen)
+    c = torch.rand(MAIN_K, generator=gen, device="cuda")
+    K, P = u.shape
+    # the unsharded kernel's bytes plus the gather of the (P,) output
+    n_bytes = (K + 1) * P * 4 + K * 4 + 2 * P * 4
+    bound, bound_by = bound_ms(n_bytes, 2.0 * K * P, part)
+    row = {
+        "name": "fed_agg_sharded", "route": "cuda",
+        "source": "src/repro_torch/csrc/fed_agg.cu",
+        "replaces": "src/repro/kernels/fed_agg.py:251",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fed_agg_sharded(u, c, mesh)),
+        "call_ms": time_ms(lambda: fed_agg_sharded(u, c, mesh), hold=False),
+        "unsharded_ms": time_ms(lambda: fed_agg(u, c)),
+        "plain_ms": time_ms(lambda: fed_agg_plain(u, c)),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": time_ms(lambda: torch.matmul(c, u)),
+        "shape": f"K={K} P={P} fp32, mesh (cuda:0, cuda:0)",
+    }
+    log(json.dumps({"kernel_check": row}))
+    return row
+
+
+def check_fed_agg_apply_sharded(gen, part: str) -> dict:
+    from repro_torch.kernels.fed_agg import (APPLY_OPTS, fed_agg_apply,
+                                             fed_agg_apply_plain,
+                                             fed_agg_apply_sharded)
+
+    hyper = (0.01, 0.8, 0.9, 0.99, 1e-3)         # lr, mix, b1, b2, eps
+    err, main = 0.0, {}
+    for mesh in _meshes():
+        for P in (4097, MAIN_P):
+            u = _randn((MAIN_K, P), gen)
+            c = torch.rand(MAIN_K, generator=gen, device="cuda")
+            g = _randn(P, gen)
+            m = _randn(P, gen) * 0.1
+            v = torch.rand(P, generator=gen, device="cuda") * 0.1
+            for opt in APPLY_OPTS:
+                got = fed_agg_apply_sharded(u, c, g, m, v, *hyper, opt=opt,
+                                            mesh=mesh)
+                want = fed_agg_apply(u, c, g, m, v, *hyper, opt=opt)
+                plain = fed_agg_apply_plain(u, c, g, m, v, *hyper, opt=opt)
+                torch.cuda.synchronize()
+                for name, t, w, p in zip(("out", "m", "v"), got[:3],
+                                         want[:3], plain[:3]):
+                    if not torch.equal(t, w):
+                        raise RuntimeError(
+                            f"fed_agg_apply_sharded {mesh.size} slots {opt} "
+                            f"P={P} {name}: differs from fed_agg_apply")
+                    torch.testing.assert_close(t, p, **FP32_TOL,
+                                               msg=f"{opt} {name}")
+                    err = max(err, max_abs_err(t, p))
+                torch.testing.assert_close(got[3], want[3],
+                                           rtol=SHARDED_NORM_RTOL, atol=0.0,
+                                           msg=f"{opt} norm")
+                torch.testing.assert_close(got[3], plain[3], rtol=NORM_RTOL,
+                                           atol=0.0, msg=f"{opt} norm")
+                if (mesh.size, opt, P) == (2, "fedadam", MAIN_P):
+                    main = dict(args=(u, c, g, m, v), mesh=mesh)
+            log(f"fed_agg_apply_sharded {mesh.size} slots P={P}: equal to "
+                f"fed_agg_apply in out/m/v, norm within "
+                f"{SHARDED_NORM_RTOL}; max |err| vs plain {err:.3g}")
+    args, mesh = main["args"], main["mesh"]
+    K, P = args[0].shape
+    # the unsharded kernel's bytes plus the gathers of out, m and v
+    n_bytes = (K + 6) * P * 4 + K * 4 + 3 * 2 * P * 4
+    bound, bound_by = bound_ms(n_bytes, (2.0 * K + 16) * P, part)
+    row = {
+        "name": "fed_agg_apply_sharded", "route": "cuda",
+        "source": "src/repro_torch/csrc/fed_agg.cu",
+        "replaces": "src/repro/kernels/fed_agg.py:275",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fed_agg_apply_sharded(
+            *args, *hyper, opt="fedadam", mesh=mesh)),
+        "call_ms": time_ms(lambda: fed_agg_apply_sharded(
+            *args, *hyper, opt="fedadam", mesh=mesh), hold=False),
+        "unsharded_ms": time_ms(
+            lambda: fed_agg_apply(*args, *hyper, opt="fedadam")),
+        "plain_ms": time_ms(
+            lambda: fed_agg_apply_plain(*args, *hyper, opt="fedadam")),
+        "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": None,     # no single PyTorch call computes it
+        "shape": f"K={K} P={P} fp32 fedadam, mesh (cuda:0, cuda:0)",
     }
     log(json.dumps({"kernel_check": row}))
     return row
@@ -479,6 +631,36 @@ def check_flash_attention(gen, part: str) -> dict:
             f"{prefix}bound_ms": bound, f"{prefix}bound_by": bound_by,
             f"{prefix}bound_fp32_ms": bound32, f"{prefix}gflop": flops / 1e9,
         })
+    # zamba2-1.2b's shared attention block: 32 heads (32 KV), d 64,
+    # causal, no softcap, no window; SDPA computes the same function here
+    zB, zH, zS, zd = SSM_SERVES[1][1], 32, SSM_SERVES[1][2], 64
+    zq, zk, zv = (_randn((zB, zS, zH, zd), gen, torch.bfloat16)
+                  .transpose(1, 2) for _ in range(3))
+    got = flash_attention(zq, zk, zv)
+    want = flash_attention_plain(zq, zk, zv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.bfloat16])
+    err = max(err, max_abs_err(got, want))
+    del got, want
+    flops = 4.0 * zd * _attended_pairs(zS, None) * zB * zH
+    bound, bound_by = bound_ms(2.0 * 4 * zq.numel(), flops, part, BF16_FLOPS)
+    zc = [t.contiguous() for t in (zq, zk, zv)]
+    row.update({
+        "zamba_ms": time_ms(lambda: flash_attention(zq, zk, zv), runs=5,
+                            warmup=2),
+        "zamba_call_ms": time_ms(lambda: flash_attention(zq, zk, zv),
+                                 runs=5, warmup=1, hold=False),
+        "zamba_plain_ms": time_ms(lambda: flash_attention_plain(zq, zk, zv),
+                                  runs=3, warmup=1),
+        "zamba_bound_ms": bound, "zamba_bound_by": bound_by,
+        "zamba_bound_fp32_ms": bound_ms(2.0 * 4 * zq.numel(), flops,
+                                        part)[0],
+        "zamba_gflop": flops / 1e9,
+        "zamba_library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                *zc, is_causal=True), runs=5, warmup=2),
+    })
+    del zq, zk, zv, zc
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     row.update({
         "max_abs_err": err,
@@ -490,7 +672,9 @@ def check_flash_attention(gen, part: str) -> dict:
         "library": "scaled_dot_product_attention(is_causal=True, "
                    "enable_gqa=True): causal only, no softcap, no window",
         "shape": f"B={B} H={H} Hkv={Hkv} S={S} d={d} bf16 softcap 50; "
-                 f"ms = global layer, local_ms = window 4096",
+                 f"ms = global layer, local_ms = window 4096; zamba_ = "
+                 f"B={zB} H=Hkv={zH} S={zS} d={zd} bf16 causal, library "
+                 f"SDPA computes the same function there",
         "mbytes": n_bytes / 1e6,
     })
     log(json.dumps({"kernel_check": row}))
@@ -624,10 +808,17 @@ def _check_ratios(label: str, trace_path: str, ratio) -> None:
                            f"{ratio}")
 
 
-def run_main_path(label: str, ratio=None, **overrides) -> dict:
+def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
+                  **overrides) -> dict:
+    """One FL run on "cuda" through run_experiment, the launch counts set
+    to 0 just before it and read just after.  ``meshes`` = (merge mesh,
+    executor mesh) are handed to run_experiment's own wiring (its
+    make_host_mesh / make_clients_mesh return them) with merge_devices and
+    executor_devices set to their sizes.  ``cudnn=False`` runs the
+    convolutions in PyTorch's own kernels instead of cuDNN's."""
     from repro_torch.core.flatten import tree_leaves
-    from repro_torch.fl.experiment import (ExperimentConfig, ScenarioConfig,
-                                           run_experiment)
+    from repro_torch.fl import experiment
+    from repro_torch.fl.client import ClientPool
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.launch.train import build_dataset
 
@@ -639,35 +830,69 @@ def run_main_path(label: str, ratio=None, **overrides) -> dict:
     loss_before = _train_loss(task, init, parts)
     trace_dir = tempfile.TemporaryDirectory()
     trace_path = str(Path(trace_dir.name) / "trace.jsonl")
-    cfg = ExperimentConfig(
+    if meshes is not None:
+        overrides.update(merge_devices=meshes[0].size,
+                         executor_devices=meshes[1].size)
+    cfg = experiment.ExperimentConfig(
         n_rounds=3, clients_per_round=MAIN_K, eval_every=3,
-        scenario=ScenarioConfig(straggler_fraction=0.3),
+        scenario=experiment.ScenarioConfig(straggler_fraction=0.3),
         trace_path=trace_path, **overrides)
-    # host time inside local training; local_train ends by reading its
-    # loss back, so each call's span covers its device work
-    spent = {"s": 0.0, "steps": 0}
+    # host time inside local training: the eager loop's local_train ends
+    # by reading its loss back; the executor's batch_work_fn is followed
+    # by a synchronize, so each span covers its device work
+    spent = {"s": 0.0, "steps": 0, "client_steps": 0}
+
+    def steps_of(ds):
+        return task.config.epochs * -(-len(ds) // task.config.batch_size)
+
     local_train = task.local_train
 
     def timed_local_train(global_params, ds, **kw):
         t = time.perf_counter()
         out = local_train(global_params, ds, **kw)
         spent["s"] += time.perf_counter() - t
-        spent["steps"] += task.config.epochs * -(-len(ds)
-                                                 // task.config.batch_size)
+        spent["steps"] += steps_of(ds)
+        spent["client_steps"] += steps_of(ds)
+        return out
+
+    batch_work_fn = ClientPool.batch_work_fn
+
+    def timed_batch_work_fn(pool, cids, global_params, round_number):
+        t = time.perf_counter()
+        out = batch_work_fn(pool, cids, global_params, round_number)
+        torch.cuda.synchronize()
+        spent["s"] += time.perf_counter() - t
+        for group in pool.executor._group(pool, cids).values():
+            spent["steps"] += steps_of(pool.clients[group[0]].dataset)
+        spent["client_steps"] += sum(steps_of(pool.clients[c].dataset)
+                                     for c in cids)
         return out
 
     task.local_train = timed_local_train
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    params, res = run_experiment(task, parts, test_parts, cfg,
-                                 initial_params=init, device="cuda",
-                                 return_params=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in KERNELS}
+    ClientPool.batch_work_fn = timed_batch_work_fn
+    mesh_makers = (experiment.make_host_mesh, experiment.make_clients_mesh)
+    if meshes is not None:
+        experiment.make_host_mesh = lambda *a, **k: meshes[0]
+        experiment.make_clients_mesh = lambda *a, **k: meshes[1]
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        params, res = experiment.run_experiment(
+            task, parts, test_parts, cfg, initial_params=init,
+            device="cuda", return_params=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in KERNELS}
+    finally:
+        torch.backends.cudnn.enabled = True
+        ClientPool.batch_work_fn = batch_work_fn
+        experiment.make_host_mesh, experiment.make_clients_mesh = \
+            mesh_makers
     if ratio is not None:
         _check_ratios(label, trace_path, ratio)
+    trace = Path(trace_path).read_bytes()
     trace_dir.cleanup()
     leaves = tree_leaves(params)
     if not all(t.device.type == "cuda" for t in leaves):
@@ -678,15 +903,123 @@ def run_main_path(label: str, ratio=None, **overrides) -> dict:
     if not loss_after < loss_before:
         raise RuntimeError(f"{label}: training loss did not fall "
                            f"({loss_before:.4f} -> {loss_after:.4f})")
-    out = {"run": label, "wall_s": wall, "wall_s_per_round": wall / 3,
+    vectorized = (cfg.vectorized if cfg.vectorized is not None else True)
+    out = {"run": label, "path": "executor" if vectorized else "eager",
+           "wall_s": wall, "wall_s_per_round": wall / 3,
            "final_accuracy": res.final_accuracy, "mean_eur": res.mean_eur,
            "virtual_duration_s": res.total_duration_s,
            "train_loss_before": loss_before, "train_loss_after": loss_after,
            "merged_updates": [r.aggregated_updates for r in res.rounds],
            "local_train_s": spent["s"], "local_steps": spent["steps"],
+           "client_steps": spent["client_steps"],
            "ms_per_local_step": 1e3 * spent["s"] / max(1, spent["steps"]),
+           "local_share_of_wall": spent["s"] / wall,
            "compression_ratio": ratio, "launches": launches}
     log(json.dumps({"main_path": out}))
+    out.update(_params=params, _trace=trace,
+               _rounds=[(r.selected, r.successes, r.eur) for r in res.rounds])
+    return out
+
+
+def _param_gap(a: dict, b: dict) -> dict:
+    """How far two runs' final params are apart: max |a - b|, the share of
+    values more than 1e-4 apart, and ‖a - b‖ / ‖b‖."""
+    from repro_torch.core.flatten import flatten_params
+
+    fa, fb = flatten_params(a["_params"])[0], flatten_params(b["_params"])[0]
+    diff = (fa - fb).abs()
+    return {"runs": [a["run"], b["run"]], "max_abs": float(diff.max()),
+            "share_over_1e-4": float((diff > 1e-4).float().mean()),
+            "rel_l2": float(diff.norm() / fb.norm())}
+
+
+def check_runs_agree(a: dict, b: dict, floor: dict = None,
+                     same_trace: bool = True) -> dict:
+    """Two FL runs of one configuration on two paths: per round the same
+    cohort, successes and EUR; the same trace bytes where ``same_trace``;
+    training losses after the run within FL_LOSS_RTOL and final params
+    within FL_PARAM_REL_L2, printed beside the ``floor`` gap (the eager
+    loop against itself with cuDNN off).  The paths round the
+    convolutions' sums differently, and 315 local Adam steps a client
+    turn such differences into step-sized ones wherever a gradient is
+    near zero (ROADMAP Queue 3), so the params are held to the measured
+    spread of that rounding, not to fp32 precision."""
+    if a["_rounds"] != b["_rounds"]:
+        raise RuntimeError(f"{a['run']} and {b['run']}: rounds differ: "
+                           f"{a['_rounds']} vs {b['_rounds']}")
+    if same_trace and a["_trace"] != b["_trace"]:
+        raise RuntimeError(f"{a['run']} and {b['run']}: traces differ")
+    gap = _param_gap(a, b)
+    gap["train_loss_after"] = [a["train_loss_after"], b["train_loss_after"]]
+    if floor is not None:
+        gap["floor_rel_l2"] = floor["rel_l2"]
+    log(json.dumps({"runs_agree": gap}))
+    if abs(a["train_loss_after"] - b["train_loss_after"]) > (
+            FL_LOSS_RTOL * b["train_loss_after"]):
+        raise RuntimeError(f"training losses apart beyond {FL_LOSS_RTOL}: "
+                           f"{gap}")
+    if gap["rel_l2"] > FL_PARAM_REL_L2:
+        raise RuntimeError(f"final params apart beyond {FL_PARAM_REL_L2} "
+                           f"(relative L2): {gap}")
+    return gap
+
+
+def check_executor_full_width() -> dict:
+    """The vectorized executor against the eager loop at full width: one
+    round's MAIN_K clients, one local epoch with local SGD (lr 0.01, so
+    that no Adam step amplifies rounding), client by client.  With cuDNN
+    off both paths run PyTorch's own convolutions and must agree within
+    EXEC_TOL; with cuDNN on, cuDNN picks other algorithms for the grouped
+    convolutions vmap makes than for the eager ones, and only the losses
+    are held (EXEC_LOSS_TOL), the params' gap is reported."""
+    from repro_torch.core.flatten import flatten_params
+    from repro_torch.fl.client import ClientPool
+    from repro_torch.fl.executor import VectorizedExecutor
+    from repro_torch.fl.tasks import ClassificationTask, TaskConfig
+    from repro_torch.launch.train import build_dataset
+
+    full_task, parts, _ = build_dataset("femnist", n_clients=10)
+    task = ClassificationTask(full_task.model,
+                              TaskConfig(epochs=1, batch_size=10,
+                                         optimizer="sgd",
+                                         learning_rate=0.01),
+                              device="cuda")
+    pool = ClientPool(task, parts, None, seed=0)
+    cids = pool.client_ids[:MAIN_K]
+    params = task.init_params(0)
+    seeds = [pool.client_seed(c, 0) for c in cids]
+    out = {"clients": len(cids), "tol": EXEC_TOL,
+           "loss_tol": EXEC_LOSS_TOL}
+    # the process's first executor call (cuDNN's plans for the grouped
+    # convolutions, functorch's first dispatch) against a second one
+    for key in ("first_call_s", "second_call_s"):
+        t0 = time.perf_counter()
+        VectorizedExecutor(task).run_group(cids, [parts[c] for c in cids],
+                                           params, 0.0, seeds)
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+    for cudnn in (False, True):
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            got = VectorizedExecutor(task).run_group(
+                cids, [parts[c] for c in cids], params, 0.0, seeds)
+            err, loss_err = 0.0, 0.0
+            for cid, seed in zip(cids, seeds):
+                want, want_loss = task.local_train(params, parts[cid],
+                                                   seed=seed)
+                a, b = flatten_params(got[cid][0])[0], flatten_params(want)[0]
+                err = max(err, max_abs_err(a, b))
+                loss_err = max(loss_err, abs(got[cid][1] - want_loss))
+                if not cudnn:
+                    torch.testing.assert_close(a, b, **EXEC_TOL)
+        finally:
+            torch.backends.cudnn.enabled = True
+        key = "cudnn" if cudnn else "cudnn_off"
+        out[key] = {"max_abs_err": err, "max_loss_err": loss_err}
+        if loss_err > EXEC_LOSS_TOL:
+            raise RuntimeError(f"executor losses {loss_err} from the eager "
+                               f"loop ({key})")
+    log(json.dumps({"executor_vs_eager_full_width": out}))
     return out
 
 
@@ -711,6 +1044,12 @@ def profile_local_training() -> dict:
         task.local_train(params, ds, seed=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    out = _profile_summary(prof, steps, wall)
+    log(json.dumps({"local_training_profile": out}))
+    return out
+
+
+def _profile_summary(prof, steps: int, wall: float) -> dict:
     on_card = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in on_card)
@@ -718,13 +1057,40 @@ def profile_local_training() -> dict:
     for e in on_card:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    out = {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
-           "device_busy_ms_per_step": busy_us / 1e3 / steps,
-           "device_busy_share": busy_us / 1e6 / wall,
-           "device_ops_per_step": len(on_card) / steps,
-           "top_ms_per_step": [[name[:80], us / 1e3 / steps]
-                               for name, us in top]}
-    log(json.dumps({"local_training_profile": out}))
+    return {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "device_ops_per_step": len(on_card) / steps,
+            "top_ms_per_step": [[name[:80], us / 1e3 / steps]
+                                for name, us in top]}
+
+
+def profile_vectorized_round() -> dict:
+    """One round's cohort (MAIN_K clients, full-width FEMNIST CNN) through
+    the vectorized executor under torch.profiler: device operations and
+    busy time per executor step (one step trains all K clients)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl.client import ClientPool
+    from repro_torch.launch.train import build_dataset
+
+    task, parts, _ = build_dataset("femnist", n_clients=10)
+    pool = ClientPool(task, parts, None, seed=0)
+    cids = pool.client_ids[:MAIN_K]
+    params = task.init_params(0)
+    pool.batch_work_fn(cids, params, 0)           # warm-up
+    steps = sum(task.config.epochs * -(-len(pool.clients[g[0]].dataset)
+                                       // task.config.batch_size)
+                for g in pool.executor._group(pool, cids).values())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pool.batch_work_fn(cids, params, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = dict(_profile_summary(prof, steps, wall), clients=len(cids))
+    log(json.dumps({"vectorized_round_profile": out}))
     return out
 
 
@@ -1118,11 +1484,21 @@ def main() -> int:
     part = card_part(smi)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_fed_agg(gen, part), check_fed_agg_apply(gen, part),
+            check_fed_agg_sharded(gen, part),
+            check_fed_agg_apply_sharded(gen, part),
             *check_int8(gen, part), check_topk_mask(gen, part),
             check_flash_attention(gen, part), check_ssd_scan(gen, part)]
     log(f"phase 2 done at {time.perf_counter() - T0:.1f} s")
 
+    # the default path on the card is the vectorized executor; one run
+    # keeps the eager loop driven
+    check_executor_full_width()
+    eager = run_main_path("fedlesscan (eager)", vectorized=False)
+    native = run_main_path("fedlesscan (eager, cudnn off)", vectorized=False,
+                           cudnn=False)
+    floor = check_runs_agree(eager, native)
     fedlesscan = run_main_path("fedlesscan")
+    check_runs_agree(fedlesscan, eager, floor)
     fedadam = run_main_path("fedavg+fedadam", strategy="fedavg",
                             server_opt="fedadam", server_opt_lr=0.01)
     n_chunks = -(-MAIN_P // MAIN_CHUNK)
@@ -1133,7 +1509,30 @@ def main() -> int:
         "fedlesscan+topk", compress_scheme="topk",
         compress_topk_ratio=TOPK_RATIO,
         ratio=round(4 * MAIN_P / (8 * CODEC_KS[-1]), 4))
+    # executor and merge on two-slot meshes of the one card
+    from repro_torch.launch.mesh import Mesh
+    meshes = (Mesh(("cuda:0",) * 2, (("data", 2), ("model", 1))),
+              Mesh(("cuda:0",) * 2, (("clients", 2),)))
+    sharded = run_main_path("fedlesscan+sharded", meshes=meshes)
+    check_runs_agree(sharded, fedlesscan, floor)
+    fedadam_sharded = run_main_path(
+        "fedavg+fedadam+sharded", meshes=meshes, strategy="fedavg",
+        server_opt="fedadam", server_opt_lr=0.01)
+    check_runs_agree(fedadam_sharded, fedadam, floor, same_trace=False)
+    for run, name in ((sharded, "fed_agg_sharded"),
+                      (fedadam_sharded, "fed_agg_apply_sharded")):
+        merges = sum(1 for m in run["merged_updates"] if m)
+        if run["launches"][name] < 3 or run["launches"][name] != merges:
+            raise RuntimeError(f"{run['run']}: {run['launches'][name]} "
+                               f"{name} launches for {merges} merges in 3 "
+                               f"rounds")
+    for run in (fedlesscan, fedadam, int8, topk):
+        if run["launches"]["fed_agg_sharded"] or run["launches"][
+                "fed_agg_apply_sharded"]:
+            raise RuntimeError(f"{run['run']}: a sharded wrapper launched "
+                               f"without a mesh")
     profile_local_training()
+    profile_vectorized_round()
     log(f"FL runs done at {time.perf_counter() - T0:.1f} s")
     serve = run_serve(rows[-2])
     log(f"{SERVE_ARCH} serve done at {time.perf_counter() - T0:.1f} s")
@@ -1143,6 +1542,8 @@ def main() -> int:
         log(f"{spec[0]} serve done at {time.perf_counter() - T0:.1f} s")
     # which run's launches each kernel's row reports
     runs = {"fed_agg": fedlesscan, "fed_agg_apply": fedadam,
+            "fed_agg_sharded": sharded,
+            "fed_agg_apply_sharded": fedadam_sharded,
             "int8_encode": int8, "int8_decode": int8, "topk_mask": topk,
             "flash_attention": serve, "ssd_scan": ssm_serves[0]}
     for row in rows:

@@ -8,10 +8,13 @@ aggregated clients.  Updates with t − t_k ≥ τ are discarded (τ = 2 in the
 paper).  For t_k = t the scheme reduces exactly to FedAvg.
 
 Updates are dicts of tensors.  `aggregate` has one path: every update is
-flattened into one row of a (K, P) matrix (core/flatten.py, the
-``ravel_pytree`` layout), the weighted sum runs as one ``fed_agg`` call
-(kernels/fed_agg.py: the CUDA kernel on the card, its plain version on
-the CPU), and the result is unflattened back into the params tree.
+one row of a (K, P) matrix (core/flatten.py, the ``ravel_pytree``
+layout), the weighted sum runs as one ``fed_agg`` call (kernels/fed_agg.py:
+the CUDA kernel on the card, its plain version on the CPU), or one
+``fed_agg_sharded`` call over a mesh of more than one device, and the
+result is unflattened back into the params tree.  Updates from the
+vectorized executor are rows of its matrix (core/device_batch.py), and
+the (K, P) input is gathered from it with one ``index_select``.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..kernels.fed_agg import fed_agg
+from ..kernels.fed_agg import fed_agg, fed_agg_sharded
 from .flatten import flatten_into, flatten_params, tree_map
 
 Pytree = Any
@@ -31,22 +34,30 @@ class ClientUpdate:
 
     `payload_bytes` / `dense_bytes` are the simulated wire sizes of a
     compressed update; they stay None on the uncompressed path.
+
+    An update from the vectorized executor is a row reference into its
+    group's (K, P) matrix (``batch``/``batch_row``, core/device_batch.py):
+    ``params`` builds the tree on first access, and ``flat_params`` reads
+    the row without building it.  Assigning ``params`` detaches the
+    update from its batch.
     """
 
-    __slots__ = ("client_id", "params", "num_samples", "round_number",
+    __slots__ = ("client_id", "num_samples", "round_number",
                  "training_time", "payload_bytes", "dense_bytes",
-                 "dispatch_s")
+                 "dispatch_s", "batch", "batch_row", "_params")
 
-    def __init__(self, client_id: str, params: Pytree,
+    def __init__(self, client_id: str, params: Pytree = None,
                  num_samples: int = 0, round_number: int = 0,
                  training_time: float = 0.0,
                  payload_bytes: Optional[int] = None,
                  dense_bytes: Optional[int] = None,
-                 dispatch_s: Optional[float] = None):
-        if params is None:
-            raise ValueError(f"update {client_id!r} needs params")
+                 dispatch_s: Optional[float] = None,
+                 batch=None, batch_row: int = -1):
+        if params is None and batch is None:
+            raise ValueError(f"update {client_id!r} needs params or a "
+                             f"device-batch row")
         self.client_id = client_id
-        self.params = params
+        self._params = params
         self.num_samples = num_samples
         self.round_number = round_number   # t_k — round the update is for
         self.training_time = training_time
@@ -54,9 +65,32 @@ class ClientUpdate:
         self.dense_bytes = dense_bytes      # uncompressed fp32 wire size
         # wall-clock launch latency (telemetry; never enters virtual time)
         self.dispatch_s = dispatch_s
+        self.batch = batch                  # DeviceUpdateBatch, or None
+        self.batch_row = batch_row
+
+    @property
+    def params(self) -> Pytree:
+        if self._params is None:
+            self._params = self.batch.tree(self.batch_row)
+        return self._params
+
+    @params.setter
+    def params(self, value: Pytree) -> None:
+        self._params = value
+        self.batch = None                  # the tree is now authoritative
+        self.batch_row = -1
+
+    def flat_params(self) -> torch.Tensor:
+        """The flat (P,) view: the batch row when the tree was never
+        built, else the tree flattened."""
+        if self._params is None:
+            return self.batch.row(self.batch_row)
+        return flatten_params(self._params)[0]
 
     def __repr__(self) -> str:
-        return (f"ClientUpdate({self.client_id!r}, params=<tree>, "
+        src = (f"batch_row={self.batch_row}" if self._params is None
+               else "params=<tree>")
+        return (f"ClientUpdate({self.client_id!r}, {src}, "
                 f"n={self.num_samples}, round={self.round_number})")
 
 
@@ -104,14 +138,28 @@ def staleness_coefficients(updates: Sequence[ClientUpdate],
 def flat_update_matrix(updates: Sequence[ClientUpdate]
                        ) -> Tuple[torch.Tensor, Any]:
     """(K, P) matrix of flattened updates, in the first update's flat
-    dtype and on its device, plus the shared ``unflatten`` handle.  Each
-    row is written in place; the matrix is fresh, nobody else holds it."""
-    flat0, unflatten = flatten_params(updates[0].params)
+    dtype and on its device, plus the shared ``unflatten`` handle.  The
+    matrix is fresh: nobody else holds it.
+
+    When every update is a row of one executor batch, the rows come out
+    of its matrix with one ``index_select``.  Otherwise each row is
+    written in place: a batch row copied, a tree flattened into it."""
+    first = updates[0]
+    b = first.batch
+    if b is not None and all(u.batch is b for u in updates):
+        return b.gather([u.batch_row for u in updates]), b.unflatten
+    if b is not None:
+        flat0, unflatten = first.flat_params(), b.unflatten
+    else:
+        flat0, unflatten = flatten_params(first.params)
     mat = torch.empty((len(updates), flat0.numel()), dtype=flat0.dtype,
                       device=flat0.device)
     mat[0].copy_(flat0)
     for k, u in enumerate(updates[1:], start=1):
-        flatten_into(u.params, mat[k])
+        if u.batch is not None:
+            mat[k].copy_(u.flat_params())
+        else:
+            flatten_into(u.params, mat[k])
     return mat, unflatten
 
 
@@ -121,11 +169,16 @@ def coefficient_tensor(coeffs, device: torch.device) -> torch.Tensor:
                            device=device)
 
 
-def aggregate(updates: Sequence[ClientUpdate], coeffs: np.ndarray) -> Pytree:
+def aggregate(updates: Sequence[ClientUpdate], coeffs: np.ndarray,
+              mesh=None) -> Pytree:
     """Weighted sum Σ_k c_k · W_k over client updates: one ``fed_agg``
-    call over their (K, P) matrix."""
+    call over their (K, P) matrix, or one ``fed_agg_sharded`` call with
+    P split over ``mesh`` when it has more than one device."""
     mat, unflatten = flat_update_matrix(updates)
-    return unflatten(fed_agg(mat, coefficient_tensor(coeffs, mat.device)))
+    cf = coefficient_tensor(coeffs, mat.device)
+    if mesh is not None and mesh.size > 1:
+        return unflatten(fed_agg_sharded(mat, cf, mesh).to(mat.device))
+    return unflatten(fed_agg(mat, cf))
 
 
 def fedavg_aggregate(updates: Sequence[ClientUpdate]) -> Pytree:

@@ -25,6 +25,12 @@ constructs one per strategy from `StrategyConfig.server_opt*`):
   buffers and run the whole weighted-sum → Δ → moment-update → apply
   step as one ``fed_agg_apply`` call (kernels/fed_agg.py).
 
+With ``mesh`` set to a ``launch.mesh.Mesh`` of more than one device
+(``ExperimentConfig.merge_devices``), both paths split the P dim over it:
+the identity path through ``fed_agg_sharded``, the optimizer path through
+``fed_agg_apply_sharded``.  ``None`` or a size-1 mesh is the unsharded
+call.
+
 Empty merges are uniform across strategies and training modes: no
 updates → the global model is returned unchanged and ``last_update_norm``
 reads 0.0.  `last_update_norm` carries ‖Δ‖₂ of the latest merge on the
@@ -39,7 +45,7 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..kernels.fed_agg import fed_agg_apply
+from ..kernels.fed_agg import fed_agg_apply, fed_agg_apply_sharded
 from ..optim.optimizers import zeros_like_f32
 from .aggregation import (ClientUpdate, aggregate, coefficient_tensor,
                           flat_update_matrix)
@@ -84,8 +90,11 @@ class ServerOptConfig:
 class MergePipeline:
     """Delta-based merge: weighted sum → pseudo-gradient → server opt."""
 
-    def __init__(self, config: Optional[ServerOptConfig] = None):
+    def __init__(self, config: Optional[ServerOptConfig] = None,
+                 mesh=None):
         self.config = (config or ServerOptConfig()).normalized()
+        # P-sharded merge over a launch.mesh.Mesh; None or size 1: unsharded
+        self.mesh = mesh
         self.steps = 0                  # server-optimizer steps taken
         self.last_update_norm: Optional[float] = None   # ‖Δ‖₂
         self._m: Optional[torch.Tensor] = None   # flat fp32 moments (P,)
@@ -130,14 +139,14 @@ class MergePipeline:
                         coeffs: np.ndarray, mix: float) -> Pytree:
         if mix >= 1.0:
             # w' = w + (Σ c·W − w) = Σ c·W
-            return aggregate(updates, coeffs)
+            return aggregate(updates, coeffs, mesh=self.mesh)
         if global_params is None:
             raise ValueError("mix < 1 folds the global model in as an "
                              "anchor; global params are required")
         anchor = ClientUpdate("__global__", global_params, num_samples=0,
                               round_number=updates[0].round_number)
         folded = np.concatenate(([1.0 - mix], mix * coeffs))
-        return aggregate([anchor] + updates, folded)
+        return aggregate([anchor] + updates, folded, mesh=self.mesh)
 
     # ---- optimizer path ----------------------------------------------
     def _kernel_scalars(self):
@@ -164,11 +173,15 @@ class MergePipeline:
         v = (self._v if self._v is not None
              else torch.zeros_like(flat_g, dtype=torch.float32))
         lr, b1, b2, eps = self._kernel_scalars()
+        args = (mat, coefficient_tensor(coeffs, mat.device), flat_g.float(),
+                m, v, lr, mix, b1, b2, eps)
         # outputs are fresh tensors: the strategy keeps global_params
-        out, m_new, v_new, norm = fed_agg_apply(
-            mat, coefficient_tensor(coeffs, mat.device),
-            flat_g.float(), m, v, lr, mix, b1, b2, eps,
-            opt=self.config.name)
+        if self.mesh is not None and self.mesh.size > 1:
+            out, m_new, v_new, norm = fed_agg_apply_sharded(
+                *args, opt=self.config.name, mesh=self.mesh)
+        else:
+            out, m_new, v_new, norm = fed_agg_apply(*args,
+                                                    opt=self.config.name)
         self._m = m_new
         if self.config.name in _ADAPTIVE:
             self._v = v_new

@@ -4,8 +4,10 @@
 //   fed_agg_kernel        <- _fed_agg_kernel (fed_agg.py:43), pallas_call :68
 //   fed_agg_apply_kernel  <- _make_apply_kernel (fed_agg.py:112), pallas_call :192
 //
-// Both read a (K, P) row-major matrix of K flattened client updates and
-// reduce over K for every column p:
+// Both read a (K, P) matrix of K flattened client updates, row k starting
+// k * ld elements after row 0 (ld >= P: ld = P for a contiguous matrix, the
+// full padded width for one P slab of a wider matrix, as the sharded merge
+// of kernels/fed_agg.py hands over), and reduce over K for every column p:
 //   fed_agg        out[p] = sum_k c[k] * U[k, p]            (fp32 accumulate)
 //   fed_agg_apply  s = sum_k c[k] * U[k, p]; d = mix * (s - g[p]);
 //                  moment update for the server optimizer; out = g + lr * step;
@@ -21,8 +23,8 @@
 // columns and walks k = 0..K-1, so every load of a warp covers one contiguous
 // stretch of a row (coalesced), every byte of U, g, m and v crosses the bus
 // once, and the K coefficients sit in shared memory.  VEC is the widest load
-// (up to 16 bytes) that P and the pointers' alignment allow; when P is odd or
-// a pointer is misaligned every row is read with scalar loads.  A grid-stride
+// (up to 16 bytes) that P, ld and the pointers' alignment allow; when P or ld
+// is odd or a pointer is misaligned every row is read with scalar loads.  A grid-stride
 // loop over column groups keeps a bounded grid.  Arithmetic uses the _rn
 // intrinsics so that nvcc does not contract a*b+c into an FMA: the kernels
 // then round exactly like the plain PyTorch versions in
@@ -76,14 +78,14 @@ __device__ __forceinline__ void store_f32(T* __restrict__ p, const float (&x)[VE
 // acc[j] = sum_k c[k] * U[k, p0 + j], summed over k in order from 0.
 template <typename T, int VEC>
 __device__ __forceinline__ void weighted_sum(const T* __restrict__ U, const float* sc,
-                                             int K, long long P, long long p0,
+                                             int K, long long ld, long long p0,
                                              float (&acc)[VEC]) {
 #pragma unroll
   for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     float x[VEC];
-    load_f32<T, VEC>(U + (long long)k * P + p0, x);
+    load_f32<T, VEC>(U + (long long)k * ld + p0, x);
     const float ck = sc[k];
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(ck, x[j]));
@@ -98,7 +100,7 @@ __device__ __forceinline__ void stage_coeffs(const float* __restrict__ coeffs, f
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 fed_agg_kernel(const T* __restrict__ U, const float* __restrict__ coeffs,
-               T* __restrict__ out, int K, long long P) {
+               T* __restrict__ out, int K, long long P, long long ld) {
   extern __shared__ float sc[];
   stage_coeffs(coeffs, sc, K);
   const long long groups = P / VEC;
@@ -107,7 +109,7 @@ fed_agg_kernel(const T* __restrict__ U, const float* __restrict__ coeffs,
        gi += stride) {
     const long long p0 = gi * VEC;
     float acc[VEC];
-    weighted_sum<T, VEC>(U, sc, K, P, p0, acc);
+    weighted_sum<T, VEC>(U, sc, K, ld, p0, acc);
     store_f32<T, VEC>(out + p0, acc);
   }
 }
@@ -147,8 +149,8 @@ fed_agg_apply_kernel(const T* __restrict__ U, const float* __restrict__ coeffs,
                      const float* __restrict__ g, const float* __restrict__ m,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ m_out, float* __restrict__ v_out,
-                     float* __restrict__ partials, int K, long long P, float lr,
-                     float mix, float b1, float b2, float eps) {
+                     float* __restrict__ partials, int K, long long P, long long ld,
+                     float lr, float mix, float b1, float b2, float eps) {
   extern __shared__ float sc[];  // K coefficients, then one float per warp
   float* warp_sums = sc + K;
   stage_coeffs(coeffs, sc, K);
@@ -159,7 +161,7 @@ fed_agg_apply_kernel(const T* __restrict__ U, const float* __restrict__ coeffs,
        gi += stride) {
     const long long p0 = gi * VEC;
     float s[VEC], gv[VEC], mv[VEC], vv[VEC];
-    weighted_sum<T, VEC>(U, sc, K, P, p0, s);
+    weighted_sum<T, VEC>(U, sc, K, ld, p0, s);
     load_f32<float, VEC>(g + p0, gv);
     load_f32<float, VEC>(m + p0, mv);
     load_f32<float, VEC>(v + p0, vv);
@@ -190,12 +192,12 @@ fed_agg_apply_kernel(const T* __restrict__ U, const float* __restrict__ coeffs,
   }
 }
 
-// Widest VEC <= max_vec (a power of two) with P % VEC == 0 and every pointer
-// aligned to VEC of its own element size.
-int pick_vec(long long P, int max_vec, const void* const* ptrs, const int* elem_bytes,
-             int n) {
+// Widest VEC <= max_vec (a power of two) with P % VEC == 0, ld % VEC == 0 and
+// every pointer aligned to VEC of its own element size.
+int pick_vec(long long P, long long ld, int max_vec, const void* const* ptrs,
+             const int* elem_bytes, int n) {
   for (int vec = max_vec; vec > 1; vec >>= 1) {
-    if (P % vec) continue;
+    if (P % vec || ld % vec) continue;
     bool aligned = true;
     for (int i = 0; i < n; ++i)
       aligned = aligned && (reinterpret_cast<unsigned long long>(ptrs[i]) %
@@ -213,23 +215,23 @@ int grid_for(long long groups, int max_blocks) {
 
 template <typename T, int VEC>
 void launch_agg(const void* U, const void* coeffs, void* out, int K, long long P,
-                cudaStream_t stream) {
+                long long ld, cudaStream_t stream) {
   const int blocks = grid_for(P / VEC, 4096);
   fed_agg_kernel<T, VEC><<<blocks, kThreads, K * sizeof(float), stream>>>(
       static_cast<const T*>(U), static_cast<const float*>(coeffs), static_cast<T*>(out),
-      K, P);
+      K, P, ld);
 }
 
 template <typename T>
 void dispatch_agg(const void* U, const void* coeffs, void* out, int K, long long P,
-                  cudaStream_t stream) {
+                  long long ld, cudaStream_t stream) {
   const void* ptrs[2] = {U, out};
   const int bytes[2] = {(int)sizeof(T), (int)sizeof(T)};
-  switch (pick_vec(P, 16 / (int)sizeof(T), ptrs, bytes, 2)) {
-    case 8: launch_agg<T, 8>(U, coeffs, out, K, P, stream); break;
-    case 4: launch_agg<T, 4>(U, coeffs, out, K, P, stream); break;
-    case 2: launch_agg<T, 2>(U, coeffs, out, K, P, stream); break;
-    default: launch_agg<T, 1>(U, coeffs, out, K, P, stream); break;
+  switch (pick_vec(P, ld, 16 / (int)sizeof(T), ptrs, bytes, 2)) {
+    case 8: launch_agg<T, 8>(U, coeffs, out, K, P, ld, stream); break;
+    case 4: launch_agg<T, 4>(U, coeffs, out, K, P, ld, stream); break;
+    case 2: launch_agg<T, 2>(U, coeffs, out, K, P, ld, stream); break;
+    default: launch_agg<T, 1>(U, coeffs, out, K, P, ld, stream); break;
   }
 }
 
@@ -246,6 +248,7 @@ struct ApplyArgs {
   int n_partials;
   int K;
   long long P;
+  long long ld;
   float lr, mix, b1, b2, eps;
 };
 
@@ -254,7 +257,7 @@ void launch_apply(const ApplyArgs& a, cudaStream_t stream) {
   const size_t smem = (a.K + kWarps) * sizeof(float);
   fed_agg_apply_kernel<T, VEC, OPT><<<a.n_partials, kThreads, smem, stream>>>(
       static_cast<const T*>(a.U), a.coeffs, a.g, a.m, a.v, a.out, a.m_out, a.v_out,
-      a.partials, a.K, a.P, a.lr, a.mix, a.b1, a.b2, a.eps);
+      a.partials, a.K, a.P, a.ld, a.lr, a.mix, a.b1, a.b2, a.eps);
 }
 
 template <typename T, int VEC>
@@ -273,7 +276,7 @@ template <typename T>
 bool dispatch_apply(const ApplyArgs& a, int opt, cudaStream_t stream) {
   const void* ptrs[7] = {a.U, a.g, a.m, a.v, a.out, a.m_out, a.v_out};
   const int bytes[7] = {(int)sizeof(T), 4, 4, 4, 4, 4, 4};
-  switch (pick_vec(a.P, 4, ptrs, bytes, 7)) {
+  switch (pick_vec(a.P, a.ld, 4, ptrs, bytes, 7)) {
     case 4: return dispatch_opt<T, 4>(a, opt, stream);
     case 2: return dispatch_opt<T, 2>(a, opt, stream);
     default: return dispatch_opt<T, 1>(a, opt, stream);
@@ -288,31 +291,34 @@ const char* fed_agg_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// out (P,) = coeffs (K,) @ U (K, P); U and out share dtype (0 fp32, 1 bf16).
+// out (P,) = coeffs (K,) @ U (K, P) with row stride ld; U and out share dtype
+// (0 fp32, 1 bf16).
 int fed_agg_launch(const void* U, const void* coeffs, void* out, int K, long long P,
-                   int dtype, int device, void* stream) {
-  if (K < 1 || K > kMaxClients || P < 1) return (int)cudaErrorInvalidValue;
+                   long long ld, int dtype, int device, void* stream) {
+  if (K < 1 || K > kMaxClients || P < 1 || ld < P) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
-    dispatch_agg<float>(U, coeffs, out, K, P, s);
+    dispatch_agg<float>(U, coeffs, out, K, P, ld, s);
   } else if (dtype == kBF16) {
-    dispatch_agg<__nv_bfloat16>(U, coeffs, out, K, P, s);
+    dispatch_agg<__nv_bfloat16>(U, coeffs, out, K, P, ld, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// The fused server step; g, m, v and the three outputs are fp32 (P,),
-// partials is fp32 (n_partials,) and n_partials is the grid size.
+// The fused server step; U has row stride ld, g, m, v and the three outputs
+// are fp32 (P,), partials is fp32 (n_partials,) and n_partials is the grid
+// size.
 int fed_agg_apply_launch(const void* U, const void* coeffs, const void* g, const void* m,
                          const void* v, void* out, void* m_out, void* v_out,
-                         void* partials, int n_partials, int K, long long P, int dtype,
-                         int opt, float lr, float mix, float b1, float b2, float eps,
-                         int device, void* stream) {
-  if (K < 1 || K > kMaxClients || P < 1 || n_partials < 1) return (int)cudaErrorInvalidValue;
+                         void* partials, int n_partials, int K, long long P,
+                         long long ld, int dtype, int opt, float lr, float mix,
+                         float b1, float b2, float eps, int device, void* stream) {
+  if (K < 1 || K > kMaxClients || P < 1 || ld < P || n_partials < 1)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const ApplyArgs a{U,
@@ -324,7 +330,7 @@ int fed_agg_apply_launch(const void* U, const void* coeffs, const void* g, const
                     static_cast<float*>(m_out),
                     static_cast<float*>(v_out),
                     static_cast<float*>(partials),
-                    n_partials, K, P, lr, mix, b1, b2, eps};
+                    n_partials, K, P, ld, lr, mix, b1, b2, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok;
   if (dtype == kF32) {

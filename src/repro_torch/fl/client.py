@@ -3,7 +3,9 @@
 Each FL client is (conceptually) a FaaS function: stateless between
 invocations, loading the global model, training on its local shard, and
 pushing the update + its measured training time back to the database.
-`ClientPool.work_fn` is what the MockInvoker executes per invocation.
+`ClientPool.work_fn` is what the MockInvoker executes per invocation;
+`ClientPool.batch_work_fn` trains a round's cohort at once through the
+vectorized executor (fl/executor.py).
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ class ClientPool:
         # encoded (top-k / int8 + error feedback) on the way out of local
         # training and the ClientUpdate carries the simulated wire size
         self.compressor = compressor
+        self._executor = None
         # membership is fixed after construction, so the sorted id list is
         # computed once — callers (and the interners memoizing on list
         # identity) see one stable object instead of a fresh O(N log N)
@@ -64,13 +67,32 @@ class ClientPool:
             f"{cid}:{round_number}:{self.seed}".encode()) % (2 ** 31)
 
     def package_update(self, cid: str, params: Pytree,
-                       round_number: int,
-                       global_params: Pytree) -> ClientUpdate:
+                       round_number: int, global_params: Pytree,
+                       batch=None, row: int = -1) -> ClientUpdate:
         """Wrap trained params into the wire-format ClientUpdate: with a
         compressor the params become the server-side decode and the
         simulated payload/dense byte counts ride along; without one the
-        update is the plain dense tree (byte-identical dense path)."""
+        update is the plain dense tree (byte-identical dense path).
+
+        From the vectorized executor: pass ``batch``/``row`` (a
+        ``DeviceUpdateBatch`` row) instead of ``params``.  A compressor
+        then encodes the flat row and replaces it in place
+        (``encode_flat``), and the update is a row reference whose
+        ``.params`` is built on first access."""
         payload_bytes = dense_bytes = None
+        if batch is not None:
+            if self.compressor is not None:
+                new_row, payload_bytes, dense_bytes = \
+                    self.compressor.encode_flat(cid, batch.row(row),
+                                                global_params)
+                if payload_bytes is not None:
+                    batch.set_row(row, new_row)
+            return ClientUpdate(
+                client_id=cid,
+                num_samples=len(self.clients[cid].dataset),
+                round_number=round_number,
+                payload_bytes=payload_bytes, dense_bytes=dense_bytes,
+                batch=batch, batch_row=row)
         if self.compressor is not None:
             params, payload_bytes, dense_bytes = self.compressor.encode(
                 cid, params, global_params)
@@ -91,3 +113,23 @@ class ClientPool:
         update = self.package_update(cid, params, round_number,
                                      global_params)
         return update, self.task.nominal_work_seconds(state.dataset)
+
+    # ------------------------------------------------------------------
+    @property
+    def executor(self):
+        """The shared VectorizedExecutor, created on first use and kept on
+        the task, so pools of one task (an experiment grid) share it."""
+        if self._executor is None:
+            from .executor import VectorizedExecutor
+            self._executor = getattr(self.task, "_vec_executor", None)
+            if self._executor is None:
+                self._executor = VectorizedExecutor(self.task)
+                self.task._vec_executor = self._executor
+        return self._executor
+
+    def batch_work_fn(self, cids, global_params: Pytree,
+                      round_number: int) -> Dict[str, tuple]:
+        """Vectorized Client_Update: `work_fn`'s contract for a whole
+        round's cohort at once (fl/executor.py)."""
+        return self.executor.run_clients(self, cids, global_params,
+                                         round_number)

@@ -7,9 +7,13 @@ straggler(%) : a fixed fraction of clients is made to straggle — half of
                bandwidth / weak VM) and half *crash* (never respond),
                matching the paper's two failure effects.
 
-This slice of the PyTorch port runs the eager per-client loop on one
-device.  The knobs of slices not ported yet raise NotImplementedError
-naming their ROADMAP queue item (see `_unported`).
+On the card (``vectorized=None`` with a CUDA device) each round's cohort
+trains in the vectorized executor (fl/executor.py); on the CPU the eager
+per-client loop runs unless ``vectorized=True``.  ``merge_devices`` and
+``executor_devices`` shard the merge's P dim and the executor's cohort
+over meshes of the cards (launch/mesh.py), clamped to how many exist.
+The knobs of slices not ported yet raise NotImplementedError naming
+their ROADMAP queue item (see `_unported`).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from ..faas.cost import CostMeter
 from ..faas.invoker import MockInvoker
 from ..faas.platform import ClientProfile, FaaSConfig, SimulatedFaaSPlatform
 from ..faas.trace import TraceRecorder
+from ..launch.mesh import make_clients_mesh, make_host_mesh
 from .client import ClientPool
 from .controller import Controller
 from .tasks import ClassificationTask
@@ -57,8 +62,8 @@ class ExperimentConfig:
     faas: FaaSConfig = field(default_factory=FaaSConfig)
     scenario: ScenarioConfig = field(default_factory=ScenarioConfig)
     # event-engine surface
-    # vectorized client execution (one batched dispatch per round) is not
-    # ported yet: None and False run the eager per-client loop, True raises
+    # vectorized client execution (fl/executor.py, one batched training
+    # loop per round): None → on iff the device is CUDA; True also on CPU
     vectorized: Optional[bool] = None
     max_retries: int = 1              # FedLess invoker retry bound
     max_concurrency: Optional[int] = None   # per-round in-flight cap
@@ -111,30 +116,23 @@ class ExperimentConfig:
     compress_topk_ratio: float = 0.01
     compress_chunk: int = 256
     compress_error_feedback: bool = True
-    # mesh-sharded merge: shard the aggregation/server-update kernels
-    # over this many host devices (0/1 → single-device; >1 requires
-    # XLA_FLAGS=--xla_force_host_platform_device_count≥N or real devices)
+    # P-sharded merge: split the merge kernels' P dim over a host mesh of
+    # this many cards (launch/mesh.make_host_mesh, clamped to the cards
+    # that exist; 0/1 → unsharded)
     merge_devices: int = 0
-    # cohort-sharded executor: split the vectorized executor's K (cohort)
-    # dim over this many devices on a 1-axis ("clients",) mesh
-    # (launch/mesh.make_clients_mesh).  0/1 → the plain single-device
-    # vmap path, bitwise-identical to pre-mesh builds; >1 requires
-    # forced host devices or real accelerators and composes with
-    # merge_devices so a round never funnels through one device.  Only
-    # meaningful when `vectorized` resolves on.
+    # cohort-sharded executor: split the vectorized executor's K dim over
+    # a ("clients",) mesh of this many cards (make_clients_mesh, clamped;
+    # 0/1 → unsharded).  Only read when `vectorized` resolves on.
     executor_devices: int = 0
-    # stamp each executor group dispatch's wall-clock launch latency onto
-    # its ClientUpdates / attempt trace records as `dispatch_s`
+    # stamp each executor group's wall-clock launch latency onto its
+    # ClientUpdates / attempt trace records as `dispatch_s`
     # (only-when-set: default traces stay byte-identical)
     dispatch_timing: bool = False
-    # round-pipeline compilation surface (launch/compile_cache.py):
-    # a directory enables JAX's persistent compilation cache, so repeat
-    # runs (and CI) skip XLA compiles entirely; executor_warmup runs one
-    # throwaway vectorized dispatch before round 0 so compilation never
-    # lands inside the timed loop (off by default — warm-up itself costs
-    # one cohort's training compute)
-    compilation_cache_dir: Optional[str] = None
+    # run the executor once on round 0's cohort before the timed loop, so
+    # first-call costs (cuDNN's algorithm choice) fall outside round 0
     executor_warmup: bool = False
+    # the JAX package's persistent compilation cache; no counterpart here
+    compilation_cache_dir: Optional[str] = None
 
 
 def make_straggler_profiles(client_ids, scenario: ScenarioConfig
@@ -162,20 +160,12 @@ def _unported(config: ExperimentConfig) -> Optional[str]:
     """The first knob of ``config`` whose slice is not ported yet, with
     its ROADMAP queue item, or None."""
     checks = (
-        (bool(config.merge_devices and config.merge_devices > 1),
-         "merge_devices > 1 (sharded merge, ROADMAP Queue 1.8)"),
-        (bool(config.executor_devices and config.executor_devices > 1),
-         "executor_devices > 1 (sharded executor, ROADMAP Queue 1.8)"),
-        (config.vectorized is True,
-         "vectorized=True (vectorized executor, ROADMAP Queue 1.3)"),
         (bool(config.checkpoint_dir or config.resume_from),
          "checkpoint_dir/resume_from (checkpointing, ROADMAP Queue 1.5)"),
         (config.platforms is not None,
          "platforms (multi-platform fleets, ROADMAP Queue 1.1)"),
         (config.compilation_cache_dir is not None,
          "compilation_cache_dir (JAX compile cache, ROADMAP Queue 1.9)"),
-        (config.executor_warmup,
-         "executor_warmup (vectorized executor, ROADMAP Queue 1.3)"),
     )
     return next((what for hit, what in checks if hit), None)
 
@@ -192,9 +182,9 @@ def run_experiment(task: ClassificationTask,
 
     ``device`` (``None`` means ``"cuda"``; raises when CUDA is absent)
     must be the task's device.  ``initial_params`` is a params tree; its
-    leaves are copied to the device.  Clients train one after another
-    in the eager loop (``vectorized=None`` resolves to it in this
-    slice).  Returns the ExperimentResult, or ``(final_params, result)``
+    leaves are copied to the device.  ``vectorized=None`` resolves to
+    the vectorized executor on CUDA and to the eager per-client loop on
+    the CPU.  Returns the ExperimentResult, or ``(final_params, result)``
     with ``return_params=True``.
     """
     dev = resolve_device(device)
@@ -234,10 +224,26 @@ def run_experiment(task: ClassificationTask,
     pool = ClientPool(task, train_partitions, test_partitions,
                       proximal_mu=strategy.proximal_mu(), seed=config.seed,
                       compressor=compressor)
+    if config.merge_devices and config.merge_devices > 1:
+        # clamps to the cards that exist (one card: size 1, unsharded)
+        strategy.merger.mesh = make_host_mesh(data=config.merge_devices,
+                                              device=dev)
     profiles = make_straggler_profiles(pool.client_ids, config.scenario)
     platform = SimulatedFaaSPlatform(config.faas, seed=config.seed,
                                      recorder=recorder)
     invoker = MockInvoker(platform, pool.work_fn, profiles)
+
+    vectorized = (dev.type == "cuda" if config.vectorized is None
+                  else config.vectorized)
+    if vectorized:
+        # the executor is cached on the task (shared across experiment
+        # grids), so both knobs are set unconditionally: a later run with
+        # defaults must not inherit an earlier run's mesh or timing
+        mesh = (make_clients_mesh(config.executor_devices, device=dev)
+                if config.executor_devices and config.executor_devices > 1
+                else None)
+        pool.executor.configure_mesh(mesh)
+        pool.executor.collect_timing = bool(config.dispatch_timing)
 
     scheduler = None
     if config.scheduler is not None:
@@ -254,12 +260,14 @@ def run_experiment(task: ClassificationTask,
         eval_every=config.eval_every, seed=config.seed,
         max_retries=config.max_retries,
         max_concurrency=config.max_concurrency,
-        vectorized=False, mode=config.mode, trace=recorder,
+        vectorized=vectorized, mode=config.mode, trace=recorder,
         scheduler=scheduler)
 
     params = (tree_map(lambda t: t.to(dev), initial_params)
               if initial_params is not None
               else task.init_params(config.seed))
+    if config.executor_warmup:
+        controller.warmup_executor(params)
     params, result = controller.run(params, config.n_rounds,
                                     verbose=verbose)
     if recorder is not None:

@@ -3,6 +3,8 @@
   fed_agg        — staleness-weighted federated aggregation (Eq. 3)
   fed_agg_apply  — fused weighted-sum → pseudo-gradient → server-
                    optimizer moment update → apply (core/merge.py)
+  fed_agg_sharded, — the two with P split over the devices of a mesh
+  fed_agg_apply_sharded   (launch/mesh.py); the same kernels per slab
   int8_encode,   — per-chunk int8 quantization of a client update and
   int8_decode      its dense decode (core/compress.py)
   topk_mask      — dense top-k decode given its threshold, driven by
@@ -16,12 +18,13 @@ from .compress import (int8_decode, int8_decode_plain, int8_encode,
                        int8_encode_plain, topk_decode, topk_encode, topk_mask,
                        topk_mask_plain, topk_select)
 from .fed_agg import (APPLY_OPTS, fed_agg, fed_agg_apply,
-                      fed_agg_apply_plain, fed_agg_plain)
+                      fed_agg_apply_plain, fed_agg_apply_sharded,
+                      fed_agg_plain, fed_agg_sharded)
 from .flash_attention import flash_attention, flash_attention_plain
 from .ssd_scan import ssd_scan, ssd_scan_plain
 
-KERNELS = (fed_agg, fed_agg_apply, int8_encode, int8_decode, topk_mask,
-           flash_attention, ssd_scan)
+KERNELS = (fed_agg, fed_agg_apply, fed_agg_sharded, fed_agg_apply_sharded,
+           int8_encode, int8_decode, topk_mask, flash_attention, ssd_scan)
 
 
 def reset_launches() -> None:
@@ -31,7 +34,8 @@ def reset_launches() -> None:
 
 
 __all__ = ["APPLY_OPTS", "KERNELS", "fed_agg",
-           "fed_agg_apply", "fed_agg_apply_plain", "fed_agg_plain",
+           "fed_agg_apply", "fed_agg_apply_plain", "fed_agg_apply_sharded",
+           "fed_agg_plain", "fed_agg_sharded",
            "flash_attention", "flash_attention_plain",
            "int8_decode", "int8_decode_plain", "int8_encode",
            "int8_encode_plain", "reset_launches", "ssd_scan",

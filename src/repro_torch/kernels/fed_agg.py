@@ -15,7 +15,16 @@ wrapper counts its kernel launches in its ``launches`` attribute.  The
 plain versions take the K-sum in the kernels' order, k = 0, 1, …, with
 one rounding per multiply and per add, so on the same inputs kernel and
 plain version agree to the last bit except in ‖Δ‖₂, whose sum of
-squares is split over blocks.
+squares is split over blocks.  The update matrix may be a column slab of
+a wider matrix: its rows must be contiguous, and the kernels take their
+stride.
+
+``fed_agg_sharded`` and ``fed_agg_apply_sharded`` split the P dim over
+the devices of a ``launch.mesh.Mesh`` (the counterparts of the JAX
+package's ``shard_map`` wrappers): zero-pad P to a multiple of the mesh
+size, run the unsharded wrapper on each device's slab, sum the per-slab
+Σ Δ² in fp32 on the first device and take one square root, and gather
+the outputs there.  They launch the same two kernels per slab.
 
 The kernels replace the Pallas TPU kernels of the JAX package's
 kernels/fed_agg.py (``_fed_agg_kernel`` and ``_make_apply_kernel``).  Both
@@ -31,6 +40,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..sharding.rules import shard_slices
 from . import build
 
 # optimizer families the fused kernel computes; "sgd"/"fedavgm" share the
@@ -45,10 +55,10 @@ _MAX_APPLY_BLOCKS = 4096     # grid cap; one Σ Δ² partial per block
 _vp, _int, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float)
 _SIGNATURES = {
-    "fed_agg_launch": [_vp, _vp, _vp, _int, _ll, _int, _int, _vp],
+    "fed_agg_launch": [_vp, _vp, _vp, _int, _ll, _ll, _int, _int, _vp],
     "fed_agg_apply_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
-                             _int, _int, _ll, _int, _int, _f32, _f32, _f32,
-                             _f32, _f32, _int, _vp],
+                             _int, _int, _ll, _ll, _int, _int, _f32, _f32,
+                             _f32, _f32, _f32, _int, _vp],
 }
 
 
@@ -74,8 +84,10 @@ def _check_updates(updates: torch.Tensor, coeffs: torch.Tensor) -> None:
     if tuple(coeffs.shape) != (K,) or coeffs.dtype != torch.float32:
         raise TypeError(f"coeffs must be float32 ({K},), got "
                         f"{coeffs.dtype} {tuple(coeffs.shape)}")
-    if not updates.is_contiguous() or not coeffs.is_contiguous():
-        raise ValueError("updates and coeffs must be contiguous")
+    if (updates.stride(1) != 1 or (K > 1 and updates.stride(0) < P)
+            or not coeffs.is_contiguous()):
+        raise ValueError("updates must have contiguous rows and coeffs "
+                         "must be contiguous")
     if updates.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fed_agg runs on cpu or cuda tensors, got "
                          f"{updates.device}")
@@ -95,6 +107,12 @@ def _check_vectors(updates: torch.Tensor, **vecs: torch.Tensor) -> None:
         if x.device != updates.device:
             raise ValueError(f"{name} on {x.device}, updates on "
                              f"{updates.device}")
+
+
+def _row_stride(updates: torch.Tensor) -> int:
+    """Elements from one row of the update matrix to the next."""
+    K, P = updates.shape
+    return updates.stride(0) if K > 1 else P
 
 
 # ------------------------------------------------------------- fed_agg
@@ -131,8 +149,8 @@ def fed_agg(updates: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     out = torch.empty(P, dtype=updates.dtype, device=updates.device)
     code = lib.fed_agg_launch(
         updates.data_ptr(), coeffs.data_ptr(), out.data_ptr(), K, P,
-        _DTYPE_CODES[updates.dtype], updates.device.index or 0,
-        build.stream(updates))
+        _row_stride(updates), _DTYPE_CODES[updates.dtype],
+        updates.device.index or 0, build.stream(updates))
     build.check_status(lib, "fed_agg", code, "fed_agg")
     fed_agg.launches += 1
     return out
@@ -213,11 +231,92 @@ def fed_agg_apply(updates: torch.Tensor, coeffs: torch.Tensor,
         updates.data_ptr(), coeffs.data_ptr(), params.data_ptr(),
         m.data_ptr(), v.data_ptr(), out.data_ptr(), m_new.data_ptr(),
         v_new.data_ptr(), partials.data_ptr(), n_blocks, K, P,
-        _DTYPE_CODES[updates.dtype], APPLY_OPTS.index(opt),
-        lr, mix, b1, b2, eps, updates.device.index or 0, build.stream(updates))
+        _row_stride(updates), _DTYPE_CODES[updates.dtype],
+        APPLY_OPTS.index(opt), lr, mix, b1, b2, eps,
+        updates.device.index or 0, build.stream(updates))
     build.check_status(lib, "fed_agg", code, "fed_agg_apply")
     fed_agg_apply.launches += 1
     return out, m_new, v_new, torch.sqrt(partials.sum())
 
 
 fed_agg_apply.launches = 0
+
+
+# ------------------------------------------------------------ sharded
+def _pad_p(arr: torch.Tensor, mult: int) -> torch.Tensor:
+    """Zero-pad the trailing (P) dim to a multiple of ``mult``."""
+    pad = (-arr.shape[-1]) % mult
+    if not pad:
+        return arr
+    return torch.nn.functional.pad(arr, (0, pad))
+
+
+def fed_agg_sharded(updates: torch.Tensor, coeffs: torch.Tensor,
+                    mesh) -> torch.Tensor:
+    """``fed_agg`` with the P dim split over every device of ``mesh``.
+
+    updates (K, P) is zero-padded to a multiple of the mesh size (0·c adds
+    0) and cut into one column slab per device; each slab runs ``fed_agg``
+    on its device (a view when that is the updates' device, else a copy),
+    and the (P,) result is gathered on the mesh's first device.  A size-1
+    mesh is the unsharded call.
+    """
+    if mesh.size <= 1:
+        return fed_agg(updates, coeffs)
+    _check_updates(updates, coeffs)
+    P = updates.shape[1]
+    upd = _pad_p(updates, mesh.size)
+    home = mesh.devices[0]
+    outs = [fed_agg(upd[:, cols].to(dev), coeffs.to(dev)).to(home)
+            for dev, cols in shard_slices(upd.shape[1], mesh)]
+    if home.type == "cuda":
+        fed_agg_sharded.launches += 1
+    return torch.cat(outs)[:P]
+
+
+fed_agg_sharded.launches = 0
+
+
+def fed_agg_apply_sharded(updates: torch.Tensor, coeffs: torch.Tensor,
+                          params: torch.Tensor, m: torch.Tensor,
+                          v: torch.Tensor, lr, mix, b1, b2, eps, *,
+                          opt: str = "fedadam",
+                          mesh) -> Tuple[torch.Tensor, ...]:
+    """``fed_agg_apply`` with the P dim split over every device of ``mesh``.
+
+    Each device owns a P slab of updates, params and moments and runs the
+    fused kernel on it; the only cross-slab arithmetic is Σ Δ²: the slabs'
+    norms are squared and summed in fp32 on the first device, and one
+    square root gives ‖Δ‖₂, as the JAX package's ``psum`` does.  Padded
+    tails have zero updates, params and moments, so their Δ, moments and
+    outputs stay exactly 0.  Outputs are gathered on the first device.
+    """
+    if mesh.size <= 1:
+        return fed_agg_apply(updates, coeffs, params, m, v,
+                             lr, mix, b1, b2, eps, opt=opt)
+    if opt not in APPLY_OPTS:
+        raise ValueError(f"unknown server opt {opt!r}; available: "
+                         f"{APPLY_OPTS}")
+    _check_updates(updates, coeffs)
+    _check_vectors(updates, params=params, m=m, v=v)
+    P = updates.shape[1]
+    n = mesh.size
+    upd = _pad_p(updates, n)
+    g2, m2, v2 = (_pad_p(x, n) for x in (params, m, v))
+    home = mesh.devices[0]
+    parts, sumsq = [], torch.zeros((), dtype=torch.float32, device=home)
+    for dev, cols in shard_slices(upd.shape[1], mesh):
+        out, m_new, v_new, norm = fed_agg_apply(
+            upd[:, cols].to(dev), coeffs.to(dev), g2[cols].to(dev),
+            m2[cols].to(dev), v2[cols].to(dev), lr, mix, b1, b2, eps,
+            opt=opt)
+        parts.append([t.to(home) for t in (out, m_new, v_new)])
+        norm = norm.to(home)
+        sumsq = sumsq + norm * norm
+    if home.type == "cuda":
+        fed_agg_apply_sharded.launches += 1
+    out, m_new, v_new = (torch.cat(ts)[:P] for ts in zip(*parts))
+    return out, m_new, v_new, torch.sqrt(sumsq)
+
+
+fed_agg_apply_sharded.launches = 0

@@ -1,0 +1,93 @@
+"""Device meshes of the FL path: one process drives every device.
+
+JAX's ``shard_map`` is single-controller: one process launches work on
+every device of the mesh.  The port keeps that model.  A ``Mesh`` is a
+tuple of ``torch.device``s with named axis sizes; a shard is a slab of a
+tensor placed on its device; a cross-device sum is a sum of per-slab
+scalars on the mesh's first device, and a gather a ``torch.cat`` onto it.
+Nothing here uses ``torch.distributed``.
+
+``make_host_mesh`` (the P-sharded merge) and ``make_clients_mesh`` (the
+cohort-sharded executor) clamp to the devices that exist, as the JAX
+package's do: ``torch.cuda.device_count()`` cards, or one CPU.  A size-1
+mesh is no mesh (fl/executor.py and the ``*_sharded`` kernels take the
+unsharded path).  The ``Mesh`` constructor itself accepts a device list
+with repeats, such as ``(cpu, cpu)`` or ``(cuda:0, cuda:0)``: the
+counterpart of ``--xla_force_host_platform_device_count``, which runs
+the sharded code on one device.  Production TPU pod meshes are not
+ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..sharding.rules import CLIENT_AXIS, MESH_AXES
+
+
+class Mesh:
+    """Devices laid out along named axes (row-major over ``axes``)."""
+
+    def __init__(self, devices: Sequence[DeviceLike],
+                 axes: Sequence[Tuple[str, int]]):
+        self.devices: Tuple[torch.device, ...] = tuple(
+            torch.device(d) for d in devices)
+        self.shape: Dict[str, int] = {name: int(size) for name, size in axes}
+        unknown = [a for a in self.shape if a not in MESH_AXES]
+        if unknown:
+            raise ValueError(f"undeclared mesh axes {unknown}; declared: "
+                             f"{MESH_AXES}")
+        if not self.devices or math.prod(self.shape.values()) != len(
+                self.devices):
+            raise ValueError(f"{len(self.devices)} devices do not fill a "
+                             f"mesh of shape {self.shape}")
+        if len({d.type for d in self.devices}) != 1:
+            raise ValueError(f"a mesh holds one device type, got "
+                             f"{self.devices}")
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def key(self) -> tuple:
+        """Hashable identity: axis sizes and devices."""
+        return tuple(self.shape.items()), self.devices
+
+    def __repr__(self) -> str:
+        return f"Mesh({list(map(str, self.devices))}, {self.shape})"
+
+
+def _devices(n: int, device: DeviceLike) -> Tuple[torch.device, ...]:
+    """The first ``n`` devices of ``device``'s type."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return (dev,)
+    return tuple(torch.device("cuda", i) for i in range(n))
+
+
+def _available(device: DeviceLike) -> int:
+    return (torch.cuda.device_count()
+            if resolve_device(device).type == "cuda" else 1)
+
+
+def make_host_mesh(model: int = 1, data: int = 1,
+                   device: DeviceLike = None) -> Mesh:
+    """A ("data", "model") mesh over the devices of ``device``'s type
+    (``None`` means the cards), clamped to how many exist."""
+    n = _available(device)
+    model = min(model, n)
+    data = max(1, min(data, n // model))
+    return Mesh(_devices(data * model, device),
+                (("data", data), ("model", model)))
+
+
+def make_clients_mesh(clients: int = 1, device: DeviceLike = None) -> Mesh:
+    """The 1-axis ("clients",) mesh the executor shards its cohort over,
+    clamped to the devices that exist: asking for 8 on one card gives a
+    size-1 mesh, which the executor treats as no mesh."""
+    n = max(1, min(int(clients), _available(device)))
+    return Mesh(_devices(n, device), ((CLIENT_AXIS, n),))

@@ -236,3 +236,83 @@ def test_mamba_models_generate_on_card_as_on_cpu():
         assert torch.equal(card.tokens.cpu(), cpu.tokens)
         torch.testing.assert_close(card.prefill_logits.cpu(),
                                    cpu.prefill_logits, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_sharded_kernels_match_unsharded_on_card():
+    """fed_agg_sharded and fed_agg_apply_sharded on a two-slot mesh of the
+    one card equal the unsharded kernels bit for bit (out, m, v), the norm
+    within 1e-6; P odd, so the slabs are padded and their row stride is
+    the padded width, not their own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.fed_agg import (fed_agg_apply_sharded,
+                                             fed_agg_sharded)
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh(("cuda:0", "cuda:0"), (("data", 2), ("model", 1)))
+    u, c = _inputs(8, 100_003, seed=9)
+    c_d = torch.from_numpy(c).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        u_d = torch.from_numpy(u).to("cuda", dtype)
+        before = (fed_agg.launches, fed_agg_sharded.launches)
+        got = fed_agg_sharded(u_d, c_d, mesh)
+        torch.cuda.synchronize()
+        assert (fed_agg.launches, fed_agg_sharded.launches) == (
+            before[0] + 2, before[1] + 1)
+        assert torch.equal(got, fed_agg(u_d, c_d))
+    u_d = torch.from_numpy(u).cuda()
+    P = u.shape[1]
+    g, m, v = (torch.rand(P, device="cuda") for _ in range(3))
+    for opt in APPLY_OPTS:
+        got = fed_agg_apply_sharded(u_d, c_d, g, m, v, *HYPER, opt=opt,
+                                    mesh=mesh)
+        want = fed_agg_apply(u_d, c_d, g, m, v, *HYPER, opt=opt)
+        torch.cuda.synchronize()
+        for t, w in zip(got[:3], want[:3]):
+            assert torch.equal(t, w), opt
+        torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_executor_matches_local_train_on_card():
+    """VectorizedExecutor.run_group on the card against each client's
+    eager local_train, TF32 off.  Local SGD, so that the comparison reads
+    the batched convolutions' fp32 rounding and not Adam's amplification
+    of it (ROADMAP Queue 3); within 1e-4, since cuDNN picks other
+    algorithms for the grouped convolutions vmap makes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.data import make_image_classification
+    from repro_torch.data.synthetic import ArrayDataset
+    from repro_torch.fl.client import ClientPool
+    from repro_torch.fl.executor import VectorizedExecutor
+    from repro_torch.fl.tasks import ClassificationTask, TaskConfig
+    from repro_torch.models.small import make_cnn
+
+    full = make_image_classification(160, 14, 4, seed=0)
+    parts = {f"c{i}": ArrayDataset(full.x[i * 20:(i + 1) * 20],
+                                   full.y[i * 20:(i + 1) * 20])
+             for i in range(8)}
+    task = ClassificationTask(
+        make_cnn(14, 1, 4, 8, "tiny"),
+        TaskConfig(epochs=2, batch_size=8, optimizer="sgd",
+                   learning_rate=0.05), device="cuda")
+    pool = ClientPool(task, parts, None, seed=0)
+    params = task.init_params(0)
+    cids = [f"c{i}" for i in range(5)]
+    seeds = [pool.client_seed(cid, 0) for cid in cids]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = VectorizedExecutor(task).run_group(
+            cids, [parts[c] for c in cids], params, 0.0, seeds)
+        for cid, seed in zip(cids, seeds):
+            want, want_loss = task.local_train(params, parts[cid], seed=seed)
+            assert abs(got[cid][1] - want_loss) < 1e-4
+            for a, b in zip(tree_leaves(got[cid][0]), tree_leaves(want)):
+                assert a.device.type == "cuda"
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

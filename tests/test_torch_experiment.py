@@ -197,11 +197,8 @@ def test_unported_knobs_raise():
     parts, test_parts = _data()
     task = ClassificationTask(make_cnn(14, 1, 5, 64), TaskConfig(),
                               device="cpu")
-    for knob in (dict(merge_devices=2),
-                 dict(executor_devices=2), dict(vectorized=True),
-                 dict(checkpoint_dir="ckpt"), dict(resume_from="ckpt"),
-                 dict(platforms={}), dict(compilation_cache_dir="cache"),
-                 dict(executor_warmup=True)):
+    for knob in (dict(checkpoint_dir="ckpt"), dict(resume_from="ckpt"),
+                 dict(platforms={}), dict(compilation_cache_dir="cache")):
         cfg = experiment.ExperimentConfig(**knob)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue"):
             experiment.run_experiment(task, parts, test_parts, cfg,

@@ -22,7 +22,9 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.fl.experiment, "
             "repro_torch.launch.train, repro_torch.convert, "
             "repro_torch.models.transformer, repro_torch.configs, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.fl.executor, "
+            "repro_torch.launch.mesh, repro_torch.core.device_batch, "
+            "repro_torch.sharding.rules\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]\n"
@@ -46,6 +48,9 @@ def _imported_modules(path: Path):
 def test_no_source_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 30
+    for module in ("fl/executor.py", "core/device_batch.py",
+                   "launch/mesh.py", "sharding/rules.py"):
+        assert PORT / module in files, module
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
