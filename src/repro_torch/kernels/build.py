@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface.  The file name carries a hash of the
-source and the flags, so an edited source builds anew and an unchanged one
-is reused.  Libraries land in ``src/repro_torch/_build/`` (git-ignored).
+source, the headers beside it (``csrc/*.cuh``) and the flags, so an edited
+source or header builds anew and an unchanged one is reused.  Libraries land in ``src/repro_torch/_build/`` (git-ignored).
 Nothing is built or loaded when this module is imported.
 """
 from __future__ import annotations
@@ -42,8 +42,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed on its source and flags."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """Where ``csrc/<name>.cu`` builds to, keyed on its source, the
+    headers of csrc/ and the flags."""
+    src = b"".join(path.read_bytes() for path in
+                   [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
