@@ -7,7 +7,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. Environment: versions, the card's name and power limit, TF32 off, and
    the CUDA kernels built with nvcc from csrc/ (build seconds printed);
-   the bf16 attention kernel's SASS must hold HGMMA (wgmma) instructions,
+   the bf16 attention and scan kernels' SASS must hold HGMMA (wgmma),
    and its softcap division (csrc/div_by.cuh) must equal IEEE division
    bit for bit for the configs' caps (csrc/tools/check_division.cu).
 2. Every kernel against its plain PyTorch version on the card, at ragged,
@@ -18,7 +18,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    The sharded wrappers run on two- and three-slot meshes of the one card
    (P = 6,603,710 pads by 1 on three) and must equal the unsharded
    kernels bit for bit (the norm within 1e-6); flash_attention is also
-   timed at Zamba2's shape, where SDPA computes the same function.
+   timed at Zamba2's shape, where SDPA computes the same function, and
+   ssd_scan at one prompt, with its bf16 passes' device times
+   (torch.profiler) and workspace bytes.
 3. The main paths on the full-width FEMNIST CNN (3 rounds, 8 clients a
    round, 30 % stragglers) through run_experiment on "cuda", whose
    default there is the vectorized executor.  First the executor against
@@ -129,10 +131,12 @@ SERVE_B, SERVE_S, SERVE_NEW = 2, 5120, 32
 # prefill logits of the bf16 models, kernel path against the same model with
 # the kernels in their plain versions: within SERVE_REGROUP_FACTOR times
 # what regrouping the plain versions alone moves them by (p rounded to bf16
-# in the plain attention, the scan's fp32 sums in the reference's chunk of
-# 128).  The random bf16 models turn 1-ulp differences into several % of
-# max |logit| (PERF.md §6, PR 13-14), so a fixed share says nothing.
+# in the plain attention, the scan's fp32 sums in chunks of
+# SSD_REGROUP_CHUNK against the kernel's TILE).  The random bf16 models turn
+# 1-ulp differences into several % of max |logit| (PERF.md §6), so a fixed
+# share says nothing.
 SERVE_REGROUP_FACTOR = 2.0
+SSD_REGROUP_CHUNK = 64       # not the bf16 scan kernel's chunk (TILE, 128)
 FP32_LOGIT_TOL = 1e-3        # the model in fp32 (the JAX tests' bound)
 # ssd_scan checks: the kernel against its plain version, inputs at the JAX
 # tests' scales (x, B, C ~ 0.5·N(0, 1), a_dt = -0.3·|N(0, 1)|)
@@ -296,21 +300,26 @@ def check_softcap_division(checker: Path) -> None:
 
 
 def check_tensor_core_sass(build) -> None:
-    """Every instantiation of the bf16 attention kernel must run its
-    products as HGMMA (wgmma) in the compiled SASS."""
+    """Every instantiation of the bf16 kernels (attention at d 64, 128 and
+    256; the scan's chunk states and chunk outputs at n padded to 64 and
+    128) must run its products as HGMMA (wgmma) in the compiled SASS."""
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(build.library_path("flash_attention"))],
-                          check=True, capture_output=True, text=True).stdout
-    counts = {}
-    for part in sass.split("Function : ")[1:]:
-        match = re.search(r"flash_wgmma_kernelILi(\d+)E", part.split("\n")[0])
-        if match:
-            counts[f"d{match.group(1)}"] = part.count("HGMMA.")
-    log(f"  flash_attention bf16 kernel, HGMMA instructions in its SASS: "
-        f"{counts}")
-    if len(counts) != 3 or not all(counts.values()):
-        raise RuntimeError(f"the bf16 attention kernel lacks HGMMA: {counts}")
+    kernels = {"flash_attention": (r"(flash_wgmma)_kernelILi(\d+)E", 3),
+               "ssd_scan": (r"(chunk_state|chunk_output)_kernelILi(\d+)E",
+                            4)}
+    for lib, (pattern, n_kernels) in kernels.items():
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.library_path(lib))], check=True,
+                              capture_output=True, text=True).stdout
+        counts = {}
+        for part in sass.split("Function : ")[1:]:
+            match = re.search(pattern, part.split("\n")[0])
+            if match:
+                counts["_".join(match.groups())] = part.count("HGMMA.")
+        log(f"  {lib} bf16 kernels, HGMMA instructions in their SASS: "
+            f"{counts}")
+        if len(counts) != n_kernels or not all(counts.values()):
+            raise RuntimeError(f"the bf16 {lib} kernels lack HGMMA: {counts}")
 
 
 # ------------------------------------------------------------ phase 2
@@ -441,8 +450,11 @@ def check_fed_agg_sharded(gen, part: str) -> dict:
     u = _randn((MAIN_K, MAIN_P), gen)
     c = torch.rand(MAIN_K, generator=gen, device="cuda")
     K, P = u.shape
-    # the unsharded kernel's bytes plus the gather of the (P,) output
-    n_bytes = (K + 1) * P * 4 + K * 4 + 2 * P * 4
+    # the unsharded kernel's bytes: when every slot is the output's device
+    # each slab writes its slice in place and nothing is gathered (slabs on
+    # other devices would add their copies, at most 2·P·4 B)
+    home_only = all(dev == mesh.devices[0] for dev in mesh.devices)
+    n_bytes = (K + 1) * P * 4 + K * 4 + (0 if home_only else 2 * P * 4)
     bound, bound_by = bound_ms(n_bytes, 2.0 * K * P, part)
     row = {
         "name": "fed_agg_sharded", "route": "cuda",
@@ -840,16 +852,45 @@ def _ssd_work(x, a, B, q: int = 128):
     return flops, n_bytes
 
 
+def _ssd_pass_ms(fn, runs: int = 10) -> dict:
+    """Device ms a call of each of the bf16 scan's three kernels, summed by
+    name from torch.profiler over ``runs`` calls (None where the profiler
+    saw none of them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(("chunk_state", "state_pass", "chunk_output"), 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in us:
+                if f"{name}_kernel" in e.name:
+                    us[name] += e.time_range.elapsed_us()
+    if not all(us.values()):
+        log(f"  the profiler saw no scan pass in {us}: passes not measured")
+        return dict.fromkeys((f"{name}_ms" for name in us))
+    return {f"{name}_ms": t / 1e3 / runs for name, t in us.items()}
+
+
 def check_ssd_scan(gen, part: str) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_plain,
+                                              workspace_floats)
 
     main_shapes = {}
     for cfg_name, batch, S, _ in SSM_SERVES:
         c = get_config(cfg_name)
         main_shapes[cfg_name] = (batch, S, c.ssm_heads, c.ssm_head_dim,
                                  c.ssm_state)
-    err = 0.0
+    # one prompt at mamba2-130m's width: the grid the chunk-parallel form
+    # keeps full at b = 1
+    main_shapes["mamba2-130m b1"] = (1,) + main_shapes["mamba2-130m"][1:]
+    err = y_over_gate = 0.0
     for shape in SSD_SHAPES + tuple(main_shapes.values()):
         for dtype in (torch.float32, torch.bfloat16):
             for broadcast in (False, True):
@@ -859,23 +900,29 @@ def check_ssd_scan(gen, part: str) -> dict:
                 torch.cuda.synchronize()
                 label = (f"ssd_scan {str(dtype)[6:]} (b, l, h, p, n) = "
                          f"{shape} broadcast {broadcast}")
-                torch.testing.assert_close(y, want, **_ssd_y_tol(want),
-                                           msg=label)
-                torch.testing.assert_close(state, want_state,
-                                           rtol=SSD_FP32_TOL,
-                                           atol=SSD_FP32_TOL, msg=label)
+                torch.testing.assert_close(
+                    y, want, **_ssd_y_tol(want),
+                    msg=lambda m: f"{label}, y: {m}")
+                torch.testing.assert_close(
+                    state, want_state, rtol=SSD_FP32_TOL, atol=SSD_FP32_TOL,
+                    msg=lambda m: f"{label}, state: {m}")
                 case_err = max(max_abs_err(y, want),
                                max_abs_err(state, want_state))
                 err = max(err, case_err)
+                y_ratio = max_abs_err(y, want) / _ssd_y_tol(want)["atol"]
+                if dtype == torch.bfloat16:
+                    y_over_gate = max(y_over_gate, y_ratio)
                 log(f"{label}: max |err| y {max_abs_err(y, want):.3g} "
-                    f"state {max_abs_err(state, want_state):.3g}")
+                    f"({y_ratio:.3f} of its atol) state "
+                    f"{max_abs_err(state, want_state):.3g}")
                 del args, y, state, want, want_state
 
     row = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan.py:84"}
     # the main path's calls: bf16, B and C broadcast over heads, the state
-    for cfg_name, prefix in (("mamba2-130m", ""), ("zamba2-1.2b", "zamba_")):
+    for cfg_name, prefix in (("mamba2-130m", ""), ("zamba2-1.2b", "zamba_"),
+                             ("mamba2-130m b1", "b1_")):
         args = _ssd_inputs(main_shapes[cfg_name], gen, torch.bfloat16, True)
         flops, n_bytes = _ssd_work(*args[:3])
         bound, bound_by = bound_ms(n_bytes, flops, part, BF16_FLOPS)
@@ -892,14 +939,22 @@ def check_ssd_scan(gen, part: str) -> dict:
             f"{prefix}bound_ms": bound, f"{prefix}bound_by": bound_by,
             f"{prefix}bound_fp32_ms": bound32, f"{prefix}gflop": flops / 1e9,
             f"{prefix}mbytes": n_bytes / 1e6,
+            # the bf16 kernel's fp32 workspace (chunk states, decays),
+            # written, read and rewritten, and read again
+            f"{prefix}workspace_mbytes": 4 * workspace_floats(
+                *main_shapes[cfg_name]) / 1e6,
+            **{f"{prefix}{k}": v for k, v in _ssd_pass_ms(
+                lambda: ssd_scan(*args, return_state=True)).items()},
         })
         del args
     row.update({
         "max_abs_err": err,
+        "bf16_y_err_over_atol": y_over_gate,
         "library_ms": None,     # no single PyTorch call computes the scan
         "shape": (f"(b, l, h, p, n) = {main_shapes['mamba2-130m']} bf16, B/C "
                   f"broadcast over heads, return_state; zamba_ = "
-                  f"{main_shapes['zamba2-1.2b']}"),
+                  f"{main_shapes['zamba2-1.2b']}; b1_ = "
+                  f"{main_shapes['mamba2-130m b1']}"),
     })
     log(json.dumps({"kernel_check": row}))
     return row
@@ -1564,8 +1619,9 @@ def run_ssm_serve(arch: str, batch: int, S: int, pallas: bool) -> dict:
     - the bf16 model against the same model with both kernels in their
       plain versions: within SERVE_REGROUP_FACTOR times the difference
       that regrouping the plain versions alone makes (the scan's fp32 sums
-      in chunks of 128 against the kernel's 64, and p rounded to bf16 in
-      the plain attention): the random bf16 models amplify 1-ulp flips
+      in chunks of SSD_REGROUP_CHUNK = 64 against the kernel's TILE = 128,
+      and p rounded to bf16 in the plain attention): the random bf16 models
+      amplify 1-ulp flips
       (PERF.md §6, PR 14);
     - the model in fp32, kernel path against plain versions, at full
       depth: within FP32_LOGIT_TOL;
@@ -1628,10 +1684,10 @@ def run_ssm_serve(arch: str, batch: int, S: int, pallas: bool) -> dict:
         twin, _ = prefill(cfg, params, batch_in)
     out["max_abs_logit_diff_vs_plain_version"] = _max_abs_diff(logits, twin)
     # the bf16 model's sensitivity: the plain versions against themselves
-    # with the scan's fp32 sums grouped in the reference's chunk of 128 and
-    # p rounded to bf16 in the attention
+    # with the scan's fp32 sums grouped in chunks of SSD_REGROUP_CHUNK, not
+    # the kernel's TILE, and p rounded to bf16 in the attention
     with _attention_in_plain_version(p_in_bf16=True), \
-            _ssd_in_plain_version(tile=128):
+            _ssd_in_plain_version(tile=SSD_REGROUP_CHUNK):
         regrouped, _ = prefill(cfg, params, batch_in)
     out["plain_regrouped_vs_plain_max_abs_diff"] = _max_abs_diff(regrouped,
                                                                  twin)

@@ -88,6 +88,7 @@
 #include <stdint.h>
 
 #include "div_by.cuh"  // the softcap's division, shared with tools/check_division.cu
+#include "wgmma.cuh"   // the wgmma helpers, shared with ssd_scan.cu
 
 namespace {
 
@@ -302,14 +303,13 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out, 
 // ============================================ bf16: wgmma tensor-core kernel
 namespace tc {
 
+using namespace sm90;  // smem_u32, make_desc, the wgmma forms, pack_bf16 (wgmma.cuh)
 using bf16 = __nv_bfloat16;
 constexpr int kBQ = 128;           // query rows of a block: two consumer warpgroups of 64
 constexpr int kBK = 64;            // kv rows of a tile
 constexpr int kStages = 2;         // K and V ring depth
 constexpr int kConsumers = 256;    // two warpgroups
 constexpr int kThreads = kConsumers + 128;  // + a producer warpgroup (one thread issues the copies)
-constexpr int kRowBytes = 128;     // one swizzled row: 64 bf16 of one d chunk
-constexpr int kAtomBytes = 1024;   // 8 rows of 128 bytes: the swizzle's period
 
 // Registers a thread keeps (setmaxnreg): the producer warpgroup gives what
 // it does not need to the consumers, whose O accumulator takes d/2 of them.
@@ -328,10 +328,6 @@ struct Smem {
   static constexpr int kBarriers = kQ + 2 * kStages * kKV;   // 4 * kStages barriers of 8 bytes
   static constexpr int kBytes = kBarriers + 4 * kStages * 8 + kAtomBytes;  // + alignment slack
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // One TMA copy: the box of 64 rows x 64 columns at coordinates (column,
 // row, head, batch) of a tensor map into shared memory at dst, 128-byte
@@ -379,83 +375,6 @@ __device__ __forceinline__ void turn_wait(int wg) {
 }
 __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(2 - wg), "n"(kConsumers) : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled operand whose
-// 8-row atoms lie 1024 bytes apart.  Both offset fields hold 1024: for the
-// K-major operands (Q, K) the leading offset is unused, and for V (MN-major,
-// 64 columns an instruction) only the 8-row stride is used, whichever field
-// the hardware reads it from.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
-  constexpr uint64_t kOff = kAtomBytes >> 4;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (kOff << 16) | (kOff << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from touching registers that an in-flight wgmma
-// reads or writes before wgmma_wait has returned.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// d (64 x 64, fp32) (+)= A (64 x 16, K-major in shared memory) . B^T
-// (B 64 x 16, K-major in shared memory); scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x 64, fp32) += A (64 x 16 bf16 in registers) . B (16 x 64, MN-major
-// in shared memory: the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // .x = lo sits in the low half
-  return *reinterpret_cast<uint32_t*>(&t);
 }
 
 // What a thread needs to mask and cap its scores of one kv tile: its first
@@ -524,11 +443,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
   }
 }
 
-// Register layout of a 64 x 64 fp32 wgmma accumulator in a warpgroup:
-// thread (warp w, lane l) holds rows 16w + l/4 (its "row 0") and that + 8
-// ("row 1"); value j sits in row (j >> 1) & 1, column 8 (j >> 2) + 2 (l % 4)
-// + (j & 1).  The same registers, rounded to bf16 in pairs, are the A
-// operand of a 64 x 16 product for each 16 columns.
+// The accumulators are in wgmma.cuh's register layout.
 //
 // Thread 256 produces: it copies Q and then each kv tile's K and V into the
 // rings by TMA as soon as their stage is free.  Warps 0-7 (two warpgroups of 64

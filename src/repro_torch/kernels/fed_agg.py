@@ -24,7 +24,8 @@ the devices of a ``launch.mesh.Mesh`` (the counterparts of the JAX
 package's ``shard_map`` wrappers): zero-pad P to a multiple of the mesh
 size, run the unsharded wrapper on each device's slab, sum the per-slab
 Σ Δ² in fp32 on the first device and take one square root, and gather
-the outputs there.  They launch the same two kernels per slab.
+the outputs there (``fed_agg_sharded`` writes its slabs straight into one
+output there instead).  They launch the same two kernels per slab.
 
 The kernels replace the Pallas TPU kernels of the JAX package's
 kernels/fed_agg.py (``_fed_agg_kernel`` and ``_make_apply_kernel``).  Both
@@ -144,9 +145,22 @@ def fed_agg(updates: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     _check_updates(updates, coeffs)
     if updates.device.type == "cpu":
         return fed_agg_plain(updates, coeffs)
+    return _fed_agg_into(updates, coeffs, torch.empty(
+        updates.shape[1], dtype=updates.dtype, device=updates.device))
+
+
+fed_agg.launches = 0
+
+
+def _fed_agg_into(updates: torch.Tensor, coeffs: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """``fed_agg`` of checked inputs written into ``out``, a contiguous
+    (P,) tensor of the updates' dtype on their device (a slice of a wider
+    output); returns it."""
+    if updates.device.type == "cpu":
+        return out.copy_(fed_agg_plain(updates, coeffs))
     lib = _library()
     K, P = updates.shape
-    out = torch.empty(P, dtype=updates.dtype, device=updates.device)
     code = lib.fed_agg_launch(
         updates.data_ptr(), coeffs.data_ptr(), out.data_ptr(), K, P,
         _row_stride(updates), _DTYPE_CODES[updates.dtype],
@@ -154,9 +168,6 @@ def fed_agg(updates: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     build.check_status(lib, "fed_agg", code, "fed_agg")
     fed_agg.launches += 1
     return out
-
-
-fed_agg.launches = 0
 
 
 # ------------------------------------------------------- fed_agg_apply
@@ -257,9 +268,11 @@ def fed_agg_sharded(updates: torch.Tensor, coeffs: torch.Tensor,
 
     updates (K, P) is zero-padded to a multiple of the mesh size (0·c adds
     0) and cut into one column slab per device; each slab runs ``fed_agg``
-    on its device (a view when that is the updates' device, else a copy),
-    and the (P,) result is gathered on the mesh's first device.  A size-1
-    mesh is the unsharded call.
+    on its device (a view when that is the updates' device, else a copy).
+    The (P_pad,) output is allocated once on the mesh's first device: a
+    slab on that device writes its slice in place, a slab on another
+    device is copied into its slice, so no gather copies the result again.
+    A size-1 mesh is the unsharded call.
     """
     if mesh.size <= 1:
         return fed_agg(updates, coeffs)
@@ -267,11 +280,16 @@ def fed_agg_sharded(updates: torch.Tensor, coeffs: torch.Tensor,
     P = updates.shape[1]
     upd = _pad_p(updates, mesh.size)
     home = mesh.devices[0]
-    outs = [fed_agg(upd[:, cols].to(dev), coeffs.to(dev)).to(home)
-            for dev, cols in shard_slices(upd.shape[1], mesh)]
+    out = torch.empty(upd.shape[1], dtype=updates.dtype, device=home)
+    for dev, cols in shard_slices(upd.shape[1], mesh):
+        slab, c = upd[:, cols].to(dev), coeffs.to(dev)
+        if dev == home:
+            _fed_agg_into(slab, c, out[cols])
+        else:
+            out[cols].copy_(fed_agg(slab, c))
     if home.type == "cuda":
         fed_agg_sharded.launches += 1
-    return torch.cat(outs)[:P]
+    return out[:P]
 
 
 fed_agg_sharded.launches = 0

@@ -15,15 +15,21 @@ the fp32 (b, h, p, n) state after the last position comes back beside it
 to its last grid step), which prefill keeps as the decode cache.
 
 ``ssd_scan`` checks its inputs, then runs the plain PyTorch version beside
-it on a CPU tensor or launches the hand-written CUDA kernel
+it on a CPU tensor or launches the hand-written CUDA kernels
 (``csrc/ssd_scan.cu``) on a CUDA tensor; any other device raises.  It
-counts its kernel launches in its ``launches`` attribute.  ``chunk`` is the
-plain version's chunk (the sequence is padded up to a multiple of it with
-x = 0 and a_dt = 0, which leaves the state exact); the kernel walks the
-sequence in its own tiles of ``TILE`` = 64 positions and masks the tail.
-The two compute the same function in fp32 and agree to rounding, not bit
+counts its calls that launch in its ``launches`` attribute, one a call.
+The kernels are chosen by dtype: bf16 inputs (the serve runs' activations)
+run the chunk-parallel SSD on the tensor cores in chunks of ``TILE`` = 128
+positions (chunk states, the state pass, chunk outputs; every fp32
+operand of a product split into a bf16 hi and lo pair, so the products are
+fp32-class), with an fp32 workspace that the wrapper allocates; fp32
+inputs run the fp32 FMA kernel, which walks the sequence in tiles of 64
+positions.  ``chunk`` is the plain version's chunk (the sequence is padded
+up to a multiple of it with x = 0 and a_dt = 0, which leaves the state
+exact); the kernels use their own and mask the tail.  Kernel and plain
+version compute the same function in fp32 and agree to rounding, not bit
 for bit.
-The kernel reads x, B and C with any batch, time and head strides as long
+The kernels read x, B and C with any batch, time and head strides as long
 as the last dimension is contiguous, so the head-broadcast views of B and
 C that models/ssm.py passes (head stride 0) are read in place.
 """
@@ -38,22 +44,35 @@ import torch
 from . import build
 
 NEG = -1e30                  # the mask value of the reference kernel
-MAX_STATE = 128              # the kernel pads n to 32, 64 or 128
-TILE = 64                    # positions of one of the kernel's tiles
+MAX_STATE = 128              # the largest n the kernels take
+TILE = 128                   # positions of a chunk of the bf16 kernel
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "ssd_scan_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
-                        _int, _int, *([_ll] * 12), _int, _int, _vp],
+    "ssd_scan_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
+                        _int, _int, _int, *([_ll] * 12), _int, _int, _vp],
+    "ssd_scan_chunk": [],
 }
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its C signature."""
-    return build.bind("ssd_scan", _SIGNATURES)
+    """The kernels' library, built at first use, with its C signatures;
+    its bf16 chunk must be ``TILE``, which sizes the workspace."""
+    lib = build.bind("ssd_scan", _SIGNATURES)
+    if lib.ssd_scan_chunk() != TILE:
+        raise RuntimeError(f"csrc/ssd_scan.cu chunks by "
+                           f"{lib.ssd_scan_chunk()}, kernels/ssd_scan.py by "
+                           f"{TILE}")
+    return lib
+
+
+def workspace_floats(b: int, l: int, h: int, p: int, n: int) -> int:
+    """fp32 values of the bf16 kernel's workspace: each chunk's state
+    contribution (b, h, c, p, n), then each chunk's decay (b, h, c)."""
+    return b * h * -(-l // TILE) * (p * n + 1)
 
 
 def _check(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
@@ -164,11 +183,16 @@ def ssd_scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
     y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
     state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
              if return_state else None)
+    work = (torch.empty(workspace_floats(b, l, h, p, n), dtype=torch.float32,
+                        device=x.device)
+            if x.dtype == torch.bfloat16 else None)
     strides = [st for t in (x, a, B, C) for st in t.stride()[:3]]
     code = lib.ssd_scan_launch(
         x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-        state.data_ptr() if return_state else None, b, l, h, p, n, *strides,
-        _DTYPE_CODES[x.dtype], x.device.index or 0, build.stream(x))
+        state.data_ptr() if return_state else None,
+        work.data_ptr() if work is not None else None, b, l, h, p, n,
+        *strides, _DTYPE_CODES[x.dtype], x.device.index or 0,
+        build.stream(x))
     build.check_status(lib, "ssd_scan", code, "ssd_scan")
     ssd_scan.launches += 1
     return (y, state) if return_state else y

@@ -199,22 +199,30 @@ def test_generate_with_kernel_matches_plain_path_on_card():
                                rtol=1e-4, atol=1e-4)
 
 
+# (b, l, h, p, n, broadcast): l = 1; ragged l (129, 300: a partial last
+# chunk); odd p (24, 40, 100: a partial p tile, and two p tiles) and n (8,
+# 100); a broadcast B/C at n = 100, whose time stride is 200 bytes (copied
+# element by element); b = 1; and one full chunk (64 x 2)
+SSD_CARD_CASES = ((1, 1, 2, 16, 8, False), (2, 129, 3, 40, 64, True),
+                  (2, 300, 4, 64, 128, True), (1, 64, 2, 64, 128, False),
+                  (1, 257, 3, 24, 100, True), (1, 200, 2, 100, 16, False),
+                  (2, 128, 2, 64, 64, False))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_matches_plain_on_card(dtype):
     """The kernel against its plain version, y and the final state, at
-    l = 1, a ragged l, p not a multiple of 16 and n of 8, 64 and 128,
-    with contiguous and head-broadcast B and C; fp32 within 1e-4, bf16
-    within one bf16 ulp plus 1e-3."""
+    the SSD_CARD_CASES shapes, with contiguous and head-broadcast B and C;
+    fp32 within 1e-4, bf16 within one bf16 ulp plus 1e-3 (the state within
+    1e-4 for both: the bf16 kernel splits every fp32 operand of its
+    products into a bf16 hi and lo pair)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
            else dict(rtol=BF16_ULP, atol=1e-3))
     rng = np.random.default_rng(8)
-    for (b, l, h, p, n, broadcast) in ((1, 1, 2, 16, 8, False),
-                                       (2, 129, 3, 40, 64, True),
-                                       (2, 300, 4, 64, 128, True),
-                                       (1, 64, 2, 64, 128, False)):
+    for (b, l, h, p, n, broadcast) in SSD_CARD_CASES:
         x = torch.from_numpy(rng.normal(size=(b, l, h, p)).astype(
             np.float32) * 0.5).to("cuda", dtype)
         a = -torch.from_numpy(np.abs(rng.normal(size=(b, l, h))).astype(
@@ -227,8 +235,33 @@ def test_ssd_scan_matches_plain_on_card(dtype):
         torch.cuda.synchronize()
         assert ssd_scan.launches == before + 1
         want_y, want_state = ssd_scan_plain(x, a, B, C, return_state=True)
-        torch.testing.assert_close(y, want_y, **tol)
-        torch.testing.assert_close(state, want_state, rtol=1e-4, atol=1e-4)
+        label = f"{(b, l, h, p, n)} broadcast {broadcast}"
+        torch.testing.assert_close(y, want_y, **tol, msg=label)
+        torch.testing.assert_close(state, want_state, rtol=1e-4, atol=1e-4,
+                                   msg=label)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bf16_reads_strided_views_in_place():
+    """The bf16 kernel on views that models/ssm.py-like callers pass: x, B
+    and C cut from one wider buffer (time strides of the buffer, B and C
+    at column offsets that are not 16-byte aligned), the result equal to
+    that of contiguous copies bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    b, l, h, p, n = 2, 300, 3, 40, 36
+    g = torch.Generator("cuda").manual_seed(3)
+    buf = (torch.randn((b, l, h * p + 2 * n + 1), generator=g,
+                       device="cuda") * 0.5).to(torch.bfloat16)
+    x = buf[..., :h * p].reshape(b, l, h, p)
+    B = buf[:, :, None, h * p + 1:h * p + 1 + n].expand(b, l, h, n)
+    C = buf[:, :, None, h * p + 1 + n:].expand(b, l, h, n)
+    a = -torch.rand((b, l, h), generator=g, device="cuda") * 0.3
+    y, state = ssd_scan(x, a, B, C, return_state=True)
+    y2, state2 = ssd_scan(x.contiguous(), a, B.contiguous(), C.contiguous(),
+                          return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(state, state2)
 
 
 @pytest.mark.cuda

@@ -23,6 +23,7 @@ against JAX's within those tests' bounds: 1e-6 of Σ_k |c_k·U[k, p]| for
 fed_agg, rtol 1e-5 / atol 1e-6 for the fused step, 1e-5 on the norm and
 on the executor.
 """
+import importlib
 import json
 import subprocess
 import sys
@@ -121,6 +122,38 @@ def test_fed_agg_apply_sharded_equals_unsharded(opt, P):
             assert t.shape == (P,)
             assert torch.equal(t, w), (opt, P, n_devices, name)
         torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("n_devices", [2, 3])
+def test_fed_agg_sharded_writes_slabs_into_one_output(n_devices,
+                                                      monkeypatch):
+    """Each slab's sum goes straight into its slice of one (P_pad,) output
+    on the mesh's first device: every slab writes into the same storage at
+    its own offset, no torch.cat gathers them, and the result is a view of
+    that output equal to the unsharded call's."""
+    fa = importlib.import_module("repro_torch.kernels.fed_agg")
+    P = 1001
+    u, c, *_ = _inputs(5, P, seed=11)
+    writes = []
+    write = fa._fed_agg_into
+
+    def spy(updates, coeffs, out):
+        writes.append((out.untyped_storage().data_ptr(),
+                       out.storage_offset(), out.numel()))
+        return write(updates, coeffs, out)
+
+    def no_cat(*args, **kwargs):
+        raise AssertionError("fed_agg_sharded gathered with torch.cat")
+
+    monkeypatch.setattr(fa, "_fed_agg_into", spy)
+    monkeypatch.setattr(torch, "cat", no_cat)
+    got = fed_agg_sharded(u, c, _host_mesh(n_devices))
+    part = -(-P // n_devices)
+    assert [w[1:] for w in writes] == [(i * part, part)
+                                       for i in range(n_devices)]
+    assert len({w[0] for w in writes}) == 1
+    assert got.untyped_storage().data_ptr() == writes[0][0]
+    assert torch.equal(got, fed_agg(u, c))
 
 
 def test_padded_tails_stay_zero():

@@ -10,6 +10,17 @@ the JAX tests' own, 2e-4 in fp32 and 6e-2 in bf16; against ssd_chunked,
 which computes the same chunked sums in fp32, 1e-5 for y and the final
 state.  The CUDA kernel itself is held against the plain version in
 test_torch_cuda.py and chip_smoke.py.
+
+``_bf16_kernel_model`` is a plain-PyTorch model of the bf16 CUDA kernel's
+arithmetic (csrc/ssd_scan.cu, chunk TILE): chunk states from x·decay split
+into a bf16 hi and lo pair against the exact bf16 B, the state pass in
+the plain loop's order, and chunk outputs from C·Bᵀ of the bf16 inputs
+(the decay as 2^((a_cum[i] − a_cum[j])·log2 e)), the masked scores and
+the entering state each split the same way, y rounded once.  It is held against ssd_scan_plain and the interpret-mode
+Pallas kernel within chip_smoke.py's gates (y within one bf16 ulp of max
+|y| plus 1e-3, the state within 1e-4 relative and absolute), which shows
+on the CPU that the gates hold for the algorithm; the same model without
+the lo halves falls outside the state gate.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -20,11 +31,18 @@ from repro.kernels import ssd_scan as jax_ssd_scan
 from repro.kernels.ref import ssd_ref
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import KERNELS, reset_launches
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan import (NEG, TILE, ssd_scan,
+                                          ssd_scan_plain)
 from repro_torch.models import ssd_chunked
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 CHUNKED_TOL = 1e-5
+# chip_smoke.py's ssd_scan gates: the state within SSD_FP32_TOL relative
+# and absolute, bf16 y within one bf16 ulp of max |y| plus SSD_BF16_ATOL
+SSD_FP32_TOL = 1e-4
+SSD_BF16_ATOL = 1e-3
+BF16_ULP = 2.0 ** -7
+LOG2E = float(np.float32(1.4426950408889634))
 JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 # (b, l, h, p, n, chunk): the JAX tests' shapes, then l = 1, 100 and 129
 SHAPES = [(1, 64, 2, 16, 8, 32), (2, 128, 4, 32, 16, 64),
@@ -160,3 +178,104 @@ def test_kernel_is_registered():
     ssd_scan.launches = 5
     reset_launches()
     assert ssd_scan.launches == 0
+
+
+def _bf16_pair(v: torch.Tensor, split: bool = True):
+    """fp32 v as the kernel feeds it to the tensor cores: hi = bf16(v) and
+    lo = bf16(v - hi), as fp32 tensors (lo zero without ``split``)."""
+    hi = v.to(torch.bfloat16).float()
+    lo = (v - hi).to(torch.bfloat16).float() if split else torch.zeros_like(v)
+    return hi, lo
+
+
+def _bf16_kernel_model(x, a_dt, B, C, q: int = TILE, split: bool = True):
+    """The bf16 kernel's three passes in plain PyTorch, at its chunk q: x,
+    B and C bf16 (exact products), every other operand of a product an fp32
+    value split into a bf16 pair, sums in fp32.  Returns (y in x's dtype,
+    the fp32 final state)."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    c = -(-l // q)
+    pad = c * q - l
+    xf, af, Bf, Cf = x.float(), a_dt.float(), B.float(), C.float()
+    if pad:
+        xf, Bf, Cf = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                      for t in (xf, Bf, Cf))
+        af = torch.nn.functional.pad(af, (0, 0, 0, pad))
+    xc = xf.reshape(b, c, q, h, p)
+    Bc = Bf.reshape(b, c, q, h, n)
+    Cc = Cf.reshape(b, c, q, h, n)
+    a_cum = torch.cumsum(af.reshape(b, c, q, h), dim=2)      # (b,c,q,h)
+
+    # pass 1: S_c = (x · exp(a_cum[-1] − a_cum))ᵀ · B, the fp32 factor split
+    xd = xc * torch.exp(a_cum[:, :, -1:] - a_cum)[..., None]
+    hi, lo = _bf16_pair(xd, split)
+    chunk_states = (torch.einsum("bcqhp,bcqhn->bchpn", hi, Bc)
+                    + torch.einsum("bcqhp,bcqhn->bchpn", lo, Bc))
+    chunk_decay = torch.exp(a_cum[:, :, -1])                 # (b,c,h)
+
+    # pass 2: the plain version's loop
+    state = torch.zeros((b, h, p, n), dtype=torch.float32)
+    entering = []
+    for ci in range(c):
+        entering.append(state)
+        state = state * chunk_decay[:, ci, :, None, None] + chunk_states[:, ci]
+    entering = torch.stack(entering, dim=1)                  # (b,c,h,p,n)
+
+    # pass 3: exp(a_cum)·(C·enteringᵀ), then + ((C·Bᵀ) ⊙ L)·x
+    e_hi, e_lo = _bf16_pair(entering, split)
+    y = (torch.einsum("bcqhn,bchpn->bcqhp", Cc, e_hi)
+         + torch.einsum("bcqhn,bchpn->bcqhp", Cc, e_lo))
+    y = y * torch.exp(a_cum)[..., None]
+    seg = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]  # (b,c,i,j,h)
+    mask = torch.ones((q, q), dtype=torch.bool).tril()[None, None, :, :, None]
+    # the kernel takes the decay as 2^((a_cum[i] − a_cum[j])·log2 e)
+    L = torch.exp2(torch.where(mask, seg, NEG) * LOG2E)
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * L
+    s_hi, s_lo = _bf16_pair(scores, split)
+    y = y + (torch.einsum("bcijh,bcjhp->bcihp", s_hi, xc)
+             + torch.einsum("bcijh,bcjhp->bcihp", s_lo, xc))
+    return y.reshape(b, c * q, h, p)[:, :l].to(x.dtype), state
+
+
+def _within_gates(y, state, want_y, want_state) -> bool:
+    """chip_smoke.py's gates on a bf16 call (check_ssd_scan)."""
+    y_atol = BF16_ULP * float(want_y.float().abs().max()) + SSD_BF16_ATOL
+    y_ok = bool(((y.float() - want_y.float()).abs() <= y_atol).all())
+    state_ok = bool(((state - want_state).abs()
+                     <= SSD_FP32_TOL + SSD_FP32_TOL * want_state.abs()).all())
+    return y_ok and state_ok
+
+
+# (b, l, h, p, n, broadcast): ragged l (a partial last chunk, and l under
+# one chunk), p 16 and 40, n 8 and 100, head-broadcast and per-head B/C,
+# b = 1
+MODEL_CASES = [(1, 300, 2, 16, 8, True), (2, 200, 3, 40, 100, False),
+               (1, 100, 2, 40, 8, False), (1, 257, 2, 16, 100, True)]
+
+
+def _model_inputs(b, l, h, p, n, broadcast, seed):
+    x, a, B, C = _inputs(b, l, h, p, n, seed)
+    if broadcast:
+        B = np.broadcast_to(B[:, :, :1], B.shape)
+        C = np.broadcast_to(C[:, :, :1], C.shape)
+    return x, a, np.ascontiguousarray(B), np.ascontiguousarray(C)
+
+
+@pytest.mark.parametrize("b,l,h,p,n,broadcast", MODEL_CASES)
+def test_bf16_kernel_model_within_the_gates(b, l, h, p, n, broadcast):
+    """The model of the bf16 kernel's arithmetic against ssd_scan_plain
+    (y and state) and the interpret-mode Pallas kernel (y), within
+    chip_smoke.py's gates; without the lo halves the state leaves them."""
+    arrays = _model_inputs(b, l, h, p, n, broadcast, seed=7 * l + n)
+    args = _torch(arrays, torch.bfloat16)
+    y, state = _bf16_kernel_model(*args)
+    want_y, want_state = ssd_scan_plain(*args, chunk=TILE, return_state=True)
+    assert y.dtype == torch.bfloat16 and y.shape == (b, l, h, p)
+    assert _within_gates(y, state, want_y, want_state)
+    pallas = torch.from_numpy(np.asarray(
+        jax_ssd_scan(*_jax(arrays, torch.bfloat16), chunk=TILE), np.float32))
+    y_atol = BF16_ULP * float(pallas.abs().max()) + SSD_BF16_ATOL
+    assert float((y.float() - pallas).abs().max()) <= y_atol
+    y_lo, state_lo = _bf16_kernel_model(*args, split=False)
+    assert not _within_gates(y_lo, state_lo, want_y, want_state)
