@@ -5,7 +5,9 @@ whose leaves are tensors.  Every traversal visits the keys sorted at each
 level, the order ``jax.tree_util`` uses for dicts, so ``flatten_params``
 lays a tree out exactly as ``jax.flatten_util.ravel_pytree`` does: leaves
 in sorted-key order, each raveled row-major.  The (K, P) update matrix of
-the ``fed_agg`` kernels depends on that order.
+the ``fed_agg`` kernels depends on that order.  ``tree_paths`` walks
+any tree, lists and tuples too, in ``jax.tree_util``'s order; the
+checkpoint files' keys are its paths (checkpoint/checkpoint.py).
 """
 from __future__ import annotations
 
@@ -26,6 +28,21 @@ def _items(tree: Any, path: Tuple[str, ...] = ()
     else:
         raise TypeError(f"params leaf at {'/'.join(path) or '<root>'} is "
                         f"{type(tree).__name__}, not a tensor")
+
+
+def tree_paths(tree: Any, path: Tuple[str, ...] = ()
+               ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """``(path parts, leaf)`` in ``jax.tree_util``'s order: dict keys
+    sorted, lists and tuples by position (``#i``); ``None`` holds no
+    leaf."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from tree_paths(tree[key], path + (str(key),))
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from tree_paths(sub, path + (f"#{i}",))
+    elif tree is not None:
+        yield path, tree
 
 
 def tree_leaves(tree: Tree) -> List[torch.Tensor]:

@@ -12,8 +12,12 @@ trains in the vectorized executor (fl/executor.py); on the CPU the eager
 per-client loop runs unless ``vectorized=True``.  ``merge_devices`` and
 ``executor_devices`` shard the merge's P dim and the executor's cohort
 over meshes of the cards (launch/mesh.py), clamped to how many exist.
-The knobs of slices not ported yet raise NotImplementedError naming
-their ROADMAP queue item (see `_unported`).
+``platforms`` spreads the clients over a fleet of simulated providers
+(faas/profiles.py); ``checkpoint_dir`` / ``resume_from`` write and
+resume full-fidelity checkpoints in the JAX package's file format
+(fl/checkpointing.py).  The JAX package's compilation cache has no
+counterpart: ``compilation_cache_dir`` raises NotImplementedError naming
+its ROADMAP queue item.
 """
 from __future__ import annotations
 
@@ -31,8 +35,10 @@ from ..device import DeviceLike, resolve_device
 from ..faas.cost import CostMeter
 from ..faas.invoker import MockInvoker
 from ..faas.platform import ClientProfile, FaaSConfig, SimulatedFaaSPlatform
+from ..faas.profiles import MultiPlatformInvoker
 from ..faas.trace import TraceRecorder
 from ..launch.mesh import make_clients_mesh, make_host_mesh
+from .checkpointing import RoundCheckpointer
 from .client import ClientPool
 from .controller import Controller
 from .tasks import ClassificationTask
@@ -132,6 +138,7 @@ class ExperimentConfig:
     # first-call costs (cuDNN's algorithm choice) fall outside round 0
     executor_warmup: bool = False
     # the JAX package's persistent compilation cache; no counterpart here
+    # (raises NotImplementedError)
     compilation_cache_dir: Optional[str] = None
 
 
@@ -156,20 +163,6 @@ def make_straggler_profiles(client_ids, scenario: ScenarioConfig
     return profiles
 
 
-def _unported(config: ExperimentConfig) -> Optional[str]:
-    """The first knob of ``config`` whose slice is not ported yet, with
-    its ROADMAP queue item, or None."""
-    checks = (
-        (bool(config.checkpoint_dir or config.resume_from),
-         "checkpoint_dir/resume_from (checkpointing, ROADMAP Queue 1.5)"),
-        (config.platforms is not None,
-         "platforms (multi-platform fleets, ROADMAP Queue 1.1)"),
-        (config.compilation_cache_dir is not None,
-         "compilation_cache_dir (JAX compile cache, ROADMAP Queue 1.9)"),
-    )
-    return next((what for hit, what in checks if hit), None)
-
-
 def run_experiment(task: ClassificationTask,
                    train_partitions: Dict[str, ArrayDataset],
                    test_partitions: Optional[Dict[str, ArrayDataset]],
@@ -191,10 +184,10 @@ def run_experiment(task: ClassificationTask,
     if task.device != dev:
         raise ValueError(f"the task runs on {task.device}, the experiment "
                          f"on {dev}")
-    unported = _unported(config)
-    if unported is not None:
-        raise NotImplementedError(f"{unported} is not ported to the "
-                                  f"PyTorch package yet")
+    if config.compilation_cache_dir is not None:
+        raise NotImplementedError(
+            "compilation_cache_dir (JAX compile cache, ROADMAP Queue 1.9) "
+            "is not ported to the PyTorch package yet")
     history = ClientHistoryDB()
     history.ensure(train_partitions.keys())
 
@@ -229,9 +222,16 @@ def run_experiment(task: ClassificationTask,
         strategy.merger.mesh = make_host_mesh(data=config.merge_devices,
                                               device=dev)
     profiles = make_straggler_profiles(pool.client_ids, config.scenario)
-    platform = SimulatedFaaSPlatform(config.faas, seed=config.seed,
-                                     recorder=recorder)
-    invoker = MockInvoker(platform, pool.work_fn, profiles)
+    if config.platforms is not None:
+        invoker = MultiPlatformInvoker(
+            pool.work_fn, config.platforms, profiles,
+            default=config.default_platform, seed=config.seed)
+        if recorder is not None:
+            invoker.fleet.attach_recorder(recorder)
+    else:
+        platform = SimulatedFaaSPlatform(config.faas, seed=config.seed,
+                                         recorder=recorder)
+        invoker = MockInvoker(platform, pool.work_fn, profiles)
 
     vectorized = (dev.type == "cuda" if config.vectorized is None
                   else config.vectorized)
@@ -266,10 +266,26 @@ def run_experiment(task: ClassificationTask,
     params = (tree_map(lambda t: t.to(dev), initial_params)
               if initial_params is not None
               else task.init_params(config.seed))
+
+    start_round, checkpointer = 0, None
+    if config.resume_from:
+        # restored trees land on the device of `params`: the experiment's
+        params, start_round = RoundCheckpointer(
+            config.resume_from).restore(controller, params)
+    if config.checkpoint_dir:
+        checkpointer = RoundCheckpointer(
+            config.checkpoint_dir,
+            keep_last_n=config.checkpoint_keep_last_n,
+            keep_best=config.checkpoint_keep_best,
+            best_metric=config.checkpoint_best_metric)
+
     if config.executor_warmup:
         controller.warmup_executor(params)
     params, result = controller.run(params, config.n_rounds,
-                                    verbose=verbose)
+                                    verbose=verbose,
+                                    start_round=start_round,
+                                    checkpointer=checkpointer,
+                                    checkpoint_every=config.checkpoint_every)
     if recorder is not None:
         recorder.to_jsonl(config.trace_path)
     return (params, result) if return_params else result

@@ -1,10 +1,12 @@
 from .config import ArchConfig, param_count
-from .small import ModelDef, make_cnn
+from .small import (SMALL_MODELS, ModelDef, make_char_lstm, make_cnn,
+                    make_speech_cnn)
 from .ssm import (init_mamba_cache, mamba_block, mamba_decode_step,
                   ssd_chunked)
 from .transformer import (decode_step, forward, init_cache, init_params,
                           prefill)
 
 __all__ = ["ArchConfig", "ModelDef", "decode_step", "forward", "init_cache",
-           "init_mamba_cache", "init_params", "make_cnn", "mamba_block",
+           "init_mamba_cache", "init_params", "make_char_lstm", "make_cnn",
+           "make_speech_cnn", "SMALL_MODELS", "mamba_block",
            "mamba_decode_step", "param_count", "prefill", "ssd_chunked"]

@@ -371,3 +371,121 @@ def test_executor_matches_local_train_on_card():
                 torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [818_402, 67_267])
+def test_fed_agg_at_the_small_models_widths_on_card(P):
+    """The char-LSTM's and the speech CNN's merges (K = 8, ragged P), bit
+    for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    u, c = _inputs(8, P, seed=11)
+    u_d, c_d = torch.from_numpy(u).cuda(), torch.from_numpy(c).cuda()
+    before = fed_agg.launches
+    got = fed_agg(u_d, c_d)
+    torch.cuda.synchronize()
+    assert fed_agg.launches == before + 1
+    assert torch.equal(got, fed_agg_plain(u_d, c_d))
+
+
+@pytest.mark.cuda
+def test_lstm_executor_matches_local_train_on_card():
+    """The char-LSTM (reduced width, int32 tokens, a partial last batch)
+    through VectorizedExecutor.run_group on the card against each client's
+    eager local_train, with Table I's local SGD at lr 0.8: within 1e-4, the
+    bound of the CNN's card test (the batched matmuls may sum in another
+    order than the eager ones)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.data import make_char_lm
+    from repro_torch.data.synthetic import ArrayDataset
+    from repro_torch.fl.client import ClientPool
+    from repro_torch.fl.executor import VectorizedExecutor
+    from repro_torch.fl.tasks import ClassificationTask, TaskConfig
+    from repro_torch.models.small import make_char_lstm
+
+    full = make_char_lm(8 * 19, seq_len=12, vocab=20, seed=0)
+    parts = {f"c{i}": ArrayDataset(full.x[i * 19:(i + 1) * 19],
+                                   full.y[i * 19:(i + 1) * 19])
+             for i in range(8)}
+    task = ClassificationTask(
+        make_char_lstm(20, 4, 16),
+        TaskConfig(epochs=1, batch_size=8, optimizer="sgd",
+                   learning_rate=0.8), device="cuda")
+    pool = ClientPool(task, parts, None, seed=0)
+    params = task.init_params(0)
+    cids = [f"c{i}" for i in range(5)]
+    seeds = [pool.client_seed(cid, 0) for cid in cids]
+    got = VectorizedExecutor(task).run_group(
+        cids, [parts[c] for c in cids], params, 0.0, seeds)
+    for cid, seed in zip(cids, seeds):
+        want, want_loss = task.local_train(params, parts[cid], seed=seed)
+        assert abs(got[cid][1] - want_loss) < 1e-4
+        for a, b in zip(tree_leaves(got[cid][0]), tree_leaves(want)):
+            assert a.device.type == "cuda"
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_card_tensors_restores_on_card(tmp_path):
+    """A run on the card checkpoints its tensors (one host copy a dtype)
+    and a resumed run gets them back on the card, replaying the rounds of
+    the uninterrupted run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.data import label_sorted_shards, make_char_lm
+    from repro_torch.data.synthetic import ArrayDataset
+    from repro_torch.fl import experiment
+    from repro_torch.fl.checkpointing import RoundCheckpointer
+    from repro_torch.fl.tasks import ClassificationTask, TaskConfig
+    from repro_torch.models.small import make_char_lstm
+
+    full = make_char_lm(200, seq_len=12, vocab=20, seed=0)
+    parts = label_sorted_shards(ArrayDataset(full.x, full.y), 8, 2, seed=0)
+    task = ClassificationTask(
+        make_char_lstm(20, 4, 16),
+        TaskConfig(epochs=1, batch_size=8, optimizer="sgd",
+                   learning_rate=0.8, per_sample_time_s=0.05),
+        device="cuda")
+
+    def cfg(**kw):
+        return experiment.ExperimentConfig(
+            strategy="fedlesscan", clients_per_round=4, eval_every=0,
+            scenario=experiment.ScenarioConfig(straggler_fraction=0.3,
+                                               round_timeout_s=12.0),
+            **kw)
+
+    init = task.init_params(0)
+    ref_params, ref = experiment.run_experiment(
+        task, parts, None, cfg(n_rounds=3), initial_params=init,
+        device="cuda", return_params=True)
+    ckdir = str(tmp_path / "ck")
+    experiment.run_experiment(task, parts, None,
+                              cfg(n_rounds=2, checkpoint_dir=ckdir,
+                                  checkpoint_every=1), initial_params=init,
+                              device="cuda")
+    restored = {}
+    restore = RoundCheckpointer.restore
+
+    def keep(self, driver, like, round_number=None):
+        out = restore(self, driver, like, round_number)
+        restored["params"] = out[0]
+        return out
+
+    RoundCheckpointer.restore = keep
+    try:
+        params, tail = experiment.run_experiment(
+            task, parts, None, cfg(n_rounds=3, resume_from=ckdir),
+            initial_params=init, device="cuda", return_params=True)
+    finally:
+        RoundCheckpointer.restore = restore
+    assert all(t.device.type == "cuda"
+               for t in tree_leaves(restored["params"]))
+    assert [r.selected for r in tail.rounds] == \
+        [r.selected for r in ref.rounds[2:]]
+    for a, b in zip(tree_leaves(params), tree_leaves(ref_params)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -24,7 +24,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.models.transformer, repro_torch.configs, "
             "repro_torch.launch.serve, repro_torch.fl.executor, "
             "repro_torch.launch.mesh, repro_torch.core.device_batch, "
-            "repro_torch.sharding.rules\n"
+            "repro_torch.sharding.rules, repro_torch.faas.fleet, "
+            "repro_torch.faas.profiles, repro_torch.checkpoint.checkpoint, "
+            "repro_torch.fl.checkpointing\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]\n"
@@ -49,7 +51,9 @@ def test_no_source_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 30
     for module in ("fl/executor.py", "core/device_batch.py",
-                   "launch/mesh.py", "sharding/rules.py"):
+                   "launch/mesh.py", "sharding/rules.py", "faas/fleet.py",
+                   "faas/profiles.py", "checkpoint/checkpoint.py",
+                   "fl/checkpointing.py"):
         assert PORT / module in files, module
     for path in files:
         for name in _imported_modules(path):
