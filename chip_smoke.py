@@ -76,7 +76,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions alone moves the logits by, fp32 within 1e-3), and in fp32 prefill
    of S tokens plus one decode step against prefill of S + 1 tokens
    (within 1e-3: the kernel's final state against the recurrence).
-4. A JSON line with every kernel's numbers, then, as the last line,
+4. Training (models.make_train_step, the decoders' train step; the scan's
+   forward in the ssd_scan kernel under autograd, its backward the plain
+   version's): the scan's Function at both training shapes against
+   the plain version (its y and final state within the bounds of phase
+   2, the grads of x, a_dt and the head-broadcast B/C views' bases
+   against autograd through the plain version, and the plain backward
+   timed);
+   flash_attention refusing autograd; musicgen-medium (48 layers, d 1536,
+   4 codebooks) serving 2 prompts of 1024 frames through flash_attention
+   (48 launches) and 8 greedy tokens, held as the Gemma 2 run is; then
+   mamba2-130m at full width and depth (8 × 4096 tokens, train_4k's
+   sequence with its global batch of 256 cut to 8; 20 Adam steps at lr
+   3e-4, remat, efficient_ce, fp32 params and bf16 activations, the loss
+   falling), zamba2-1.2b (2 × 4096, 3 steps) and musicgen-medium (2 ×
+   1024, 3 steps), each with its launches counted (ssd_scan twice a remat'd
+   Mamba layer a step) and a profiled step (busy share, the scan's forward
+   and plain backward shares).  Before mamba2-130m's steps its first
+   step's grads in bf16 and in fp32, and zamba2-1.2b's in bf16, are held
+   leaf by leaf against the plain scan's (within twice what regrouping the
+   plain scan's sums moves each leaf by), every scan call of the kernel
+   path's step is held against the plain scan on the model's own
+   activations, and every Mamba layer's scan-only params (A_log, dt_bias,
+   conv_w's and in_proj's x/B/C/dt parts) must get non-zero grads on the
+   kernel path.
+5. A JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
 It needs a card: without CUDA, or without the rest of the repository
@@ -185,6 +209,31 @@ SSD_BF16_ATOL = 1e-3         # plus one bf16 ulp of max |y|
 # max |state| (its sums over thousands of positions cancel)
 # the two SSM serve runs: (arch, prompts, prompt length, use_pallas_attention)
 SSM_SERVES = (("mamba2-130m", 4, 4096, False), ("zamba2-1.2b", 2, 4096, True))
+# the train runs (arch, batch, sequence, Adam steps) through
+# models.make_train_step at full width and depth (fp32 params, bf16
+# activations, remat, efficient_ce, lr TRAIN_LR), on launch/pretrain.py's
+# data: mamba2-130m at configs/shapes.py train_4k's sequence with its global
+# batch of 256 cut to 8 for one card; zamba2-1.2b (the scan's second shape,
+# the weight-tied shared block's grads summed over its 6 uses) and
+# musicgen-medium (codebooks) take a few steps
+TRAIN_RUNS = (("mamba2-130m", 8, 4096, 20), ("zamba2-1.2b", 2, 4096, 3),
+              ("musicgen-medium", 2, 1024, 3))
+TRAIN_LR = 3e-4
+# one step's grads, the scan's forward in the kernel against the same step
+# with the scan in its plain version: every leaf's relative L2 within
+# TRAIN_GRAD_FACTOR times what regrouping only the plain scan's fp32 sums
+# (chunks of SSD_REGROUP_CHUNK against TILE) moves that leaf by, measured in
+# the same run on the same batch; the serve runs' rule for logits
+TRAIN_GRAD_FACTOR = SERVE_REGROUP_FACTOR
+# the ssd_scan Function's grads against autograd through ssd_scan_plain: the
+# same fp32 graph on the same inputs, so equal but for cuBLAS's choice of
+# algorithm: within SSD_GRAD_TOL of each input's max |grad|
+SSD_GRAD_TOL = 1e-5
+# the scan kernels' names as the profiler lists them (fp32; bf16 passes)
+SSD_KERNEL_NAMES = ("ssd_kernel", "chunk_state_kernel", "state_pass_kernel",
+                    "chunk_output_kernel")
+# musicgen-medium serve: prompts, codebook frames a prompt, new tokens
+MUSICGEN_SERVE = (2, 1024, 8)
 # published peaks of the H100 (SXM / PCIe data sheets)
 FP32_FLOPS = {"sxm": 67e12, "pcie": 51e12}
 BF16_FLOPS = {"sxm": 989e12, "pcie": 756e12}     # dense tensor cores
@@ -234,7 +283,7 @@ def time_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3,
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    return float((got.float() - want.float()).abs().max())
+    return float((got.detach().float() - want.detach().float()).abs().max())
 
 
 def flash_bound(q, k, v, want: torch.Tensor, kw: dict) -> torch.Tensor:
@@ -1645,22 +1694,36 @@ def _ssd_in_plain_version(tile=None):
 def _ssd_checked_per_call(report: dict):
     """Route models/ssm.py's scan through the kernel and, on the same
     inputs, its plain version at the kernel's tile: every call's y must
-    agree within _ssd_y_tol and its state within SSD_FP32_TOL (relative,
-    or of max |state|).  The kernel's result goes on, so the model runs
-    its main path; ``report`` gathers the calls and the largest errors."""
+    agree within _ssd_y_tol (in fp32 with its atol SSD_FP32_TOL of
+    max(1, max |y|): the model's fp32 y reaches several hundred, where the
+    fp32 rounding of the scan's sums passes an absolute 1e-4) and its
+    state within SSD_FP32_TOL (relative, or of max |state|).  The kernel's
+    result goes on, so the model runs its main path, under autograd too;
+    ``report`` gathers the calls and the largest errors."""
     from repro_torch.kernels.ssd_scan import TILE, ssd_scan, ssd_scan_plain
     from repro_torch.models import ssm
 
     def checked(x, a_dt, B, C, chunk=128, return_state=False):
         y, state = ssd_scan(x, a_dt, B, C, chunk, return_state=True)
-        want, want_state = ssd_scan_plain(x, a_dt, B, C, TILE, True)
-        label = f"ssd_scan call {report['calls']} {tuple(x.shape)}"
-        torch.testing.assert_close(y, want, **_ssd_y_tol(want), msg=label)
+        with torch.no_grad():
+            want, want_state = ssd_scan_plain(x, a_dt, B, C, TILE, True)
+        label = (f"ssd_scan call {report['calls']} {tuple(x.shape)} "
+                 f"{str(x.dtype)[6:]}")
+        max_y = float(want.float().abs().max())
+        tol = _ssd_y_tol(want)
+        if want.dtype == torch.float32:
+            tol["atol"] = SSD_FP32_TOL * max(1.0, max_y)
+        torch.testing.assert_close(y, want, **tol,
+                                   msg=lambda m: f"{label}, y: {m}")
         torch.testing.assert_close(
             state, want_state, rtol=SSD_FP32_TOL,
-            atol=SSD_FP32_TOL * float(want_state.abs().max()), msg=label)
+            atol=SSD_FP32_TOL * float(want_state.abs().max()),
+            msg=lambda m: f"{label}, state: {m}")
         report["calls"] += 1
-        report["max_err_y"] = max(report["max_err_y"], max_abs_err(y, want))
+        y_err = max_abs_err(y, want)
+        report["max_err_y"] = max(report["max_err_y"], y_err)
+        report["max_err_y_over_atol"] = max(
+            report.get("max_err_y_over_atol", 0.0), y_err / tol["atol"])
         report["max_err_state"] = max(report["max_err_state"],
                                       max_abs_err(state, want_state))
         return (y, state) if return_state else y
@@ -2002,6 +2065,474 @@ def run_ssm_serve(arch: str, batch: int, S: int, pallas: bool) -> dict:
     return out
 
 
+# ------------------------------------------------------------ training
+def _lm_batches(cfg, batch: int, S: int, steps: int) -> list:
+    """launch/pretrain.py's data: make_token_lm's stream, ``batch`` rows a
+    step (one stream a codebook), on the card."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_token_lm
+
+    rows = batch * max(1, cfg.n_codebooks)
+    data = make_token_lm(steps * rows * (S + 1) * 2, vocab=cfg.vocab,
+                         seq_len=S, seed=0)
+    shape = (batch, cfg.n_codebooks, S) if cfg.n_codebooks else (batch, S)
+    out = []
+    for step in range(steps):
+        idx = (np.arange(rows) + step * rows) % data.x.shape[0]
+        out.append({k: torch.from_numpy(a[idx].reshape(shape)).cuda()
+                    for k, a in (("tokens", data.x), ("labels", data.y))})
+    return out
+
+
+def _attention_uses(cfg) -> int:
+    """Attention blocks a forward runs (a shared block once a use)."""
+    kinds = [k for k in cfg.pattern if k != "shared_attn"]
+    own = sum(kinds[i % len(kinds)] in ("attn", "local")
+              for i in range(cfg.n_layers))
+    return own + cfg.n_super * cfg.pattern.count("shared_attn")
+
+
+def _mamba_layers(cfg) -> tuple:
+    """(Mamba layers in the remat'd superblocks, in the remainder)."""
+    kinds = [k for k in cfg.pattern if k != "shared_attn"]
+    in_super = cfg.n_super * kinds.count("mamba")
+    rem = sum(kinds[i] == "mamba" for i in range(cfg.n_rem))
+    return in_super, rem
+
+
+def train_flops(cfg, n_params: int, batch: int, S: int) -> float:
+    """Model FLOPs of one step: 6·N·tokens, plus the attention scores'
+    two products forward and backward (12·H·hd·S a token a layer, halved
+    by the causal mask).  The scan's own products (about 1 % of 6N for
+    mamba2-130m) and remat's recomputation are not counted."""
+    tokens = batch * S
+    attn = 6.0 * _attention_uses(cfg) * cfg.n_heads * cfg.hd * S * tokens
+    return 6.0 * n_params * tokens + attn
+
+
+def _profile_train_step(train_step, state, batch) -> tuple:
+    """One step under torch.profiler: the card's busy share of the step,
+    and the shares of the step spent in the scan's forward kernels and in
+    its plain backward (the ``ssd_scan_plain_backward`` spans on the
+    card's timeline; None where the profiler shows none).  The profiler
+    slows the host, so the shares are also given of the unprofiled step
+    (``run_train`` adds them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_card, spans = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        # a record_function span shows on the card as an annotation over
+        # its kernels: counted apart, not as busy time
+        annotation = (getattr(e, "is_user_annotation", False)
+                      or e.name == "ssd_scan_plain_backward")
+        (spans if annotation else on_card).append(e)
+    busy = sum(e.time_range.elapsed_us() for e in on_card)
+    scan_fwd = sum(e.time_range.elapsed_us() for e in on_card
+                   if any(k in e.name for k in SSD_KERNEL_NAMES))
+    scan_bwd = sum(e.time_range.elapsed_us() for e in spans
+                   if e.name == "ssd_scan_plain_backward")
+    by_name = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # where the host's time went: operations and CUDA runtime calls (an
+    # allocator's cudaFree waits for the card) by self time
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    wall_us = wall * 1e6
+    return state, {
+        "host_top_ms": [[a.key[:60], a.self_cpu_time_total / 1e3, a.count]
+                        for a in host[:8]],
+        "wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy / wall_us,
+        "device_ops": len(on_card),
+        "ssd_forward_kernels_ms": scan_fwd / 1e3,
+        "ssd_forward_share": scan_fwd / wall_us,
+        "ssd_plain_backward_ms": scan_bwd / 1e3 if scan_bwd else None,
+        "ssd_plain_backward_share": scan_bwd / wall_us if scan_bwd else None,
+        "top_ms": [[name[:80], us / 1e3] for name, us in top]}
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm()
+                 / b.double().norm().clamp(min=1e-300))
+
+
+def check_train_grads(cfg, params, batch, label: str) -> dict:
+    """One step's grads (models.grads_of) with the scan's forward in the
+    kernel, against the same step with the scan in its plain version at
+    the kernel's chunk (TILE): every leaf within TRAIN_GRAD_FACTOR times
+    what regrouping the plain scan's sums in chunks of SSD_REGROUP_CHUNK
+    moves it by.  In the kernel path's step every scan call (the remat'd
+    forward's re-runs too) is held against the plain scan on the same
+    activations (_ssd_checked_per_call).  The Mamba params that reach the
+    loss only through the scan (A_log, dt_bias, conv_w's and in_proj's
+    x/B/C/dt parts) must get non-zero grads, layer by layer, on the kernel
+    path."""
+    from repro_torch.core.flatten import tree_paths
+    from repro_torch.kernels import reset_launches, ssd_scan
+    from repro_torch.models import grads_of
+
+    reset_launches()
+    per_call = {"calls": 0, "max_err_y": 0.0, "max_err_state": 0.0}
+    with _ssd_checked_per_call(per_call):
+        loss, kernel = grads_of(cfg, params, batch)
+    launches = ssd_scan.launches
+    if per_call["calls"] != launches or not launches:
+        raise RuntimeError(f"{label}: {per_call['calls']} scan calls "
+                           f"checked of {launches} launches")
+    with _ssd_in_plain_version():
+        plain_loss, plain = grads_of(cfg, params, batch)
+    with _ssd_in_plain_version(tile=SSD_REGROUP_CHUNK):
+        _, regrouped = grads_of(cfg, params, batch)
+    leaves, worst = {}, 0.0
+    for (path, g), (_, w), (_, r) in zip(tree_paths(kernel),
+                                         tree_paths(plain),
+                                         tree_paths(regrouped)):
+        key = "/".join(path)
+        got, spread = _rel_l2(g, w), _rel_l2(r, w)
+        leaves[key] = {"rel_l2": got, "regroup_rel_l2": spread}
+        ratio = got / (TRAIN_GRAD_FACTOR * spread) if spread else math.inf
+        worst = max(worst, ratio)
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{label}: non-finite grads at {key}")
+    d_inner, N = cfg.d_inner, cfg.ssm_state
+    # each scan-only part of a Mamba block's params: (its dims unstacked,
+    # its parts along the last dims); in_proj's columns are z, x, B, C, dt
+    cuts = {"A_log": (1, lambda g: [g]), "dt_bias": (1, lambda g: [g]),
+            "conv_w": (2, lambda g: [g[..., :d_inner, :],
+                                     g[..., d_inner:, :]]),
+            "in_proj": (2, lambda g: [
+                g[..., d_inner:2 * d_inner],
+                g[..., 2 * d_inner:2 * d_inner + N],
+                g[..., 2 * d_inner + N:2 * d_inner + 2 * N],
+                g[..., 2 * d_inner + 2 * N:]])}
+    zero = []
+    for path, g in tree_paths(kernel):
+        if "mamba" not in path or path[-1] not in cuts:
+            continue
+        dims, cut = cuts[path[-1]]
+        for part in cut(g):
+            per_layer = part.reshape(part.shape[0] if g.dim() > dims else 1,
+                                     -1)
+            if not bool((per_layer.abs().amax(dim=1) > 0).all()):
+                zero.append("/".join(path))
+    out = {"label": label, "loss": float(loss),
+           "plain_loss": float(plain_loss), "ssd_launches": launches,
+           "per_call_check": per_call,
+           "worst_rel_l2_over_bound": worst,
+           "grad_norm": math.sqrt(sum(float(g.double().square().sum())
+                                      for _, g in tree_paths(kernel))),
+           "leaves": leaves}
+    log(json.dumps({"train_grads": out}))
+    if zero:
+        raise RuntimeError(f"{label}: a layer's scan params got no grad on "
+                           f"the kernel path: {zero}")
+    if not worst <= 1.0:
+        raise RuntimeError(f"{label}: kernel-path grads differ from the "
+                           f"plain path's by {worst:.4g} of the bound "
+                           f"({TRAIN_GRAD_FACTOR} x the regrouping spread)")
+    return out
+
+
+def run_train(arch: str, batch: int, S: int, steps: int, part: str,
+              grad_checks=("bfloat16",)) -> dict:
+    """``steps`` Adam steps of ``arch`` at full width and depth through
+    make_train_step on launch/pretrain.py's data (the main path of
+    training), with the launch counts set to 0 just before and read just
+    after: every step's loss finite and, over 20 steps, the mean of the
+    last 5 below that of the first 5.  Before it, check_train_grads on the
+    first batch for each dtype of ``grad_checks``; after it, one more step
+    under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.models import make_train_step
+
+    cfg = get_config(arch).replace(learning_rate=TRAIN_LR, efficient_ce=True)
+    if not cfg.remat:
+        raise RuntimeError(f"{arch}: the full config trains with remat")
+    train_step, init_state = make_train_step(cfg)
+    t0 = time.perf_counter()
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    batches = _lm_batches(cfg, batch, S, steps)
+    grads = {}
+    for dtype in grad_checks:
+        grads[dtype] = check_train_grads(
+            cfg.replace(dtype=dtype), state["params"], batches[0],
+            f"{arch} {dtype} grads")
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, loss = train_step(state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).tolist()
+    in_super, rem = _mamba_layers(cfg)
+    want_ssd = steps * (2 * in_super + rem)     # remat reruns the forward
+    if any(launches[k] != (want_ssd if k == "ssd_scan" else 0)
+           for k in launches):
+        raise RuntimeError(f"{arch} train: launches {launches}, want "
+                           f"{want_ssd} ssd_scan and no other")
+    state, profile = _profile_train_step(train_step, state, batches[0])
+    del state
+    torch.cuda.empty_cache()
+    step_ms = 1e3 * sum(step_s[1:]) / max(1, len(step_s) - 1)
+    for key in ("device_busy", "ssd_forward_kernels", "ssd_plain_backward"):
+        ms = profile[f"{key}_ms"]
+        profile[f"{key}_share_of_step"] = ms / step_ms if ms else None
+    flops = train_flops(cfg, n_params, batch, S)
+    out = {
+        "run": f"{arch} train", "arch": arch, "batch": batch, "seq": S,
+        "steps": steps, "lr": TRAIN_LR, "params": n_params,
+        "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+        "remat": cfg.remat, "efficient_ce": cfg.efficient_ce,
+        "init_s": init_s, "first_step_ms": 1e3 * step_s[0],
+        "ms_per_step": step_ms, "tok_per_s": batch * S / step_ms * 1e3,
+        "train_tflop_per_step": flops / 1e12,
+        "train_mfu": flops / (step_ms / 1e3) / BF16_FLOPS[part],
+        "peak_gb": peak_gb, "losses": losses, "launches": launches,
+        "profile": profile, "grad_checks": {
+            k: {"worst_rel_l2_over_bound": v["worst_rel_l2_over_bound"],
+                "loss": v["loss"], "plain_loss": v["plain_loss"]}
+            for k, v in grads.items()},
+    }
+    log(json.dumps({"train": out}))
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{arch} train: non-finite loss in {losses}")
+    if steps >= 10 and not (sum(losses[-5:]) < sum(losses[:5])):
+        raise RuntimeError(f"{arch} train: the loss did not fall: "
+                           f"{losses}")
+    return out
+
+
+def check_ssd_autograd(gen, part: str) -> dict:
+    """The ssd_scan Function on the card at the two training shapes (bf16,
+    B and C head-broadcast views, fp32 a_dt): the y and final state it
+    computes under autograd against ssd_scan_plain on the same inputs
+    (within _ssd_y_tol and SSD_FP32_TOL, as check_ssd_scan holds them);
+    its grads of x, a_dt and the views' bases (summed over heads by
+    autograd) against autograd through ssd_scan_plain on the same inputs
+    and cotangent, within SSD_GRAD_TOL of each max |grad|; and the plain
+    backward's device time at each."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    out = {}
+    for arch, batch, S, _ in TRAIN_RUNS[:2]:
+        c = get_config(arch)
+        b, l, h, p, n = batch, S, c.ssm_heads, c.ssm_head_dim, c.ssm_state
+        leaves = [(_randn((b, l, h, p), gen) * 0.5).bfloat16(),
+                  -_randn((b, l, h), gen).abs() * 0.3,
+                  (_randn((b, l, 1, n), gen) * 0.5).bfloat16(),
+                  (_randn((b, l, 1, n), gen) * 0.5).bfloat16()]
+        for t in leaves:
+            t.requires_grad_(True)
+        gy = (_randn((b, l, h, p), gen) * 0.5).bfloat16()
+
+        def scan(fn, **kw):
+            x, a, Bb, Cb = leaves
+            return fn(x, a, Bb.expand(b, l, h, n), Cb.expand(b, l, h, n),
+                      **kw)
+
+        before = ssd_scan.launches
+        y, state = scan(ssd_scan, return_state=True)
+        if ssd_scan.launches != before + 1 or y.grad_fn is None:
+            raise RuntimeError(f"ssd_scan under autograd at {arch}'s shape: "
+                               f"no kernel launch or no graph")
+        with torch.no_grad():
+            want_y, want_state = scan(ssd_scan_plain, return_state=True)
+        label = f"ssd_scan under autograd at {arch}'s shape"
+        torch.testing.assert_close(y, want_y, **_ssd_y_tol(want_y),
+                                   msg=lambda m: f"{label}, y: {m}")
+        torch.testing.assert_close(
+            state, want_state, rtol=SSD_FP32_TOL, atol=SSD_FP32_TOL,
+            msg=lambda m: f"{label}, state: {m}")
+        y_err, state_err = (max_abs_err(y, want_y),
+                            max_abs_err(state, want_state))
+        y_over_atol = y_err / _ssd_y_tol(want_y)["atol"]
+        del want_y, want_state
+        got = torch.autograd.grad(y, leaves, gy, retain_graph=True)
+        want = torch.autograd.grad(scan(ssd_scan_plain), leaves, gy)
+        errs = []
+        for name, g, w in zip(("x", "a_dt", "B", "C"), got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise RuntimeError(f"{arch} {name}: grad {g.dtype} "
+                                   f"{tuple(g.shape)}")
+            scale = float(w.float().abs().max())
+            err = max_abs_err(g, w)
+            errs.append(err / scale)
+            if not (scale > 0 and err <= SSD_GRAD_TOL * scale):
+                raise RuntimeError(f"ssd_scan grads at {arch}'s shape: "
+                                   f"{name} off by {err:.3g} of max "
+                                   f"{scale:.3g}")
+        backward_ms = time_ms(lambda: torch.autograd.grad(
+            y, leaves, gy, retain_graph=True), runs=3, warmup=1)
+        out[arch] = {"shape": (b, l, h, p, n), "max_err_y": y_err,
+                     "y_err_over_atol": y_over_atol,
+                     "max_err_state": state_err,
+                     "max_err_over_max_grad": max(errs),
+                     "plain_backward_ms": backward_ms,
+                     "kernel_forward_ms": time_ms(
+                         lambda: scan(ssd_scan).detach(), runs=5)}
+        del y, state, got, want, leaves, gy
+        torch.cuda.empty_cache()
+    log(json.dumps({"ssd_autograd": out}))
+    return out
+
+
+def check_flash_refuses_autograd() -> None:
+    """flash_attention has no backward: with an input that requires grad
+    it raises on the card, as jax.grad raises on the Pallas kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = (torch.randn(1, 2, 64, 64, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = flash_attention.launches
+    try:
+        flash_attention(q.requires_grad_(True), k, v)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    else:
+        raise RuntimeError("flash_attention ran under autograd")
+    if flash_attention.launches != before:
+        raise RuntimeError("flash_attention launched under autograd")
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    log("flash_attention under autograd: raises (no backward), as in JAX")
+
+
+def run_musicgen_serve() -> dict:
+    """musicgen-medium at full width and depth (48 layers, d 1536, 4
+    codebooks), random weights: MUSICGEN_SERVE's prompts of codebook
+    frames prefilled through flash_attention (one launch a layer) and
+    greedy new tokens.  Its bf16 prefill logits against the same model
+    with attention in the kernel's plain version (within
+    SERVE_REGROUP_FACTOR times what rounding p to bf16 in the plain
+    version moves them by), every call against its plain version, the
+    kernel path no further from the fp32 model than the plain attention
+    path, and in fp32 kernel against plain path within FP32_LOGIT_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, param_count, prefill
+
+    arch = "musicgen-medium"
+    B, S, new = MUSICGEN_SERVE
+    cfg = get_config(arch).replace(use_pallas_attention=True)
+    plain_cfg = cfg.replace(use_pallas_attention=False)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != param_count(cfg):
+        raise RuntimeError(f"{arch}: {n_params} params, not "
+                           f"{param_count(cfg)}")
+    prompt = torch.randint(0, cfg.vocab, (B, cfg.n_codebooks, S),
+                           device="cuda", generator=torch.Generator(
+                               device="cuda").manual_seed(1))
+    batch = {"tokens": prompt}
+    generate(cfg, params, prompt[..., :128], 2)        # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    run = generate(cfg, params, prompt, new)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    want = {"flash_attention": cfg.n_layers}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise RuntimeError(f"{arch} serve: launches {launches}, want {want}")
+    logits = run.prefill_logits
+    if tuple(logits.shape) != (B, S, cfg.n_codebooks * cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"{arch} serve: logits {tuple(logits.shape)}, "
+                           f"finite {bool(torch.isfinite(logits).all())}")
+    if not (tuple(run.tokens.shape) == (B, new) and 0 <= int(
+            run.tokens.min()) and int(run.tokens.max()) < cfg.vocab):
+        raise RuntimeError(f"{arch} serve: generated ids {run.tokens}")
+    out = {"run": f"{arch} serve", "arch": arch, "batch": B,
+           "codebooks": cfg.n_codebooks, "prompt_len": S, "new": new,
+           "params": n_params, "prefill_s": run.prefill_s,
+           "decode_ms_per_step": 1e3 * run.decode_s / new,
+           "max_abs_logit": float(logits.abs().max()), "launches": launches}
+    with _attention_in_plain_version():
+        twin, _ = prefill(cfg, params, batch)
+    with _attention_in_plain_version(p_in_bf16=True):
+        regrouped, _ = prefill(cfg, params, batch)
+    out["max_abs_logit_diff_vs_plain_version"] = _max_abs_diff(logits, twin)
+    out["plain_p_bf16_vs_plain_max_abs_diff"] = _max_abs_diff(regrouped,
+                                                              twin)
+    out["logit_diff_bound"] = (SERVE_REGROUP_FACTOR
+                               * out["plain_p_bf16_vs_plain_max_abs_diff"])
+    del twin, regrouped
+    report = {"calls": 0, "max_err": 0.0, "max_err_over_bound": 0.0}
+    with _flash_checked_per_call(report):
+        prefill(cfg, params, batch)
+    if report["calls"] != cfg.n_layers:
+        raise RuntimeError(f"{arch}: {report['calls']} flash_attention "
+                           f"calls checked, want {cfg.n_layers}")
+    out["per_call_check"] = report
+    plain_path, _ = prefill(plain_cfg, params, batch)
+    truth, _ = prefill(plain_cfg.replace(dtype="float32"), params, batch)
+    out["kernel_path_max_err_vs_fp32"] = _max_abs_diff(logits, truth)
+    out["plain_path_max_err_vs_fp32"] = _max_abs_diff(plain_path, truth)
+    del plain_path, logits
+    k32, _ = prefill(cfg.replace(dtype="float32"), params, batch)
+    out["fp32_max_abs_diff"] = _max_abs_diff(k32, truth)
+    del k32, truth, params
+    torch.cuda.empty_cache()
+    log(json.dumps({"serve": out}))
+    if not out["max_abs_logit_diff_vs_plain_version"] <= out[
+            "logit_diff_bound"]:
+        raise RuntimeError(
+            f"{arch} serve: prefill logits differ from the kernel's plain "
+            f"version by {out['max_abs_logit_diff_vs_plain_version']:.4g} "
+            f"> {out['logit_diff_bound']:.4g}")
+    if not out["kernel_path_max_err_vs_fp32"] <= out[
+            "plain_path_max_err_vs_fp32"]:
+        raise RuntimeError(f"{arch} serve: the kernel path is further from "
+                           f"the fp32 model than the plain path")
+    if not out["fp32_max_abs_diff"] <= FP32_LOGIT_TOL:
+        raise RuntimeError(f"{arch} serve: fp32 kernel against plain path "
+                           f"{out['fp32_max_abs_diff']:.4g}")
+    return out
+
+
+def run_training(gen, part: str) -> dict:
+    """The train phase: the scan under autograd at both training shapes,
+    flash_attention's refusal, musicgen-medium's serve, then the three
+    train runs (mamba2-130m with its grads checked in bf16 and in fp32,
+    zamba2-1.2b in bf16)."""
+    out = {"ssd_autograd": check_ssd_autograd(gen, part)}
+    check_flash_refuses_autograd()
+    out["musicgen_serve"] = run_musicgen_serve()
+    checks = {"mamba2-130m": ("bfloat16", "float32"),
+              "zamba2-1.2b": ("bfloat16",)}
+    out["train"] = []
+    for arch, batch, S, steps in TRAIN_RUNS:
+        out["train"].append(run_train(arch, batch, S, steps, part,
+                                      checks.get(arch, ())))
+        log(f"{arch} train done at {time.perf_counter() - T0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -2098,6 +2629,8 @@ def main() -> int:
     for spec in SSM_SERVES:
         ssm_serves.append(run_ssm_serve(*spec))
         log(f"{spec[0]} serve done at {time.perf_counter() - T0:.1f} s")
+    training = run_training(gen, part)
+    log(f"train phase done at {time.perf_counter() - T0:.1f} s")
     # which run's launches each kernel's row reports
     runs = {"fed_agg": fedlesscan, "fed_agg_apply": fedadam,
             "fed_agg_sharded": sharded,
@@ -2110,6 +2643,18 @@ def main() -> int:
         if row["launches"] < 1:
             raise RuntimeError(f"the {run['run']} run never launched "
                                f"{row['name']}")
+    # ssd_scan in training: mamba2-130m's launches (the forward, rerun by
+    # remat), its kernel forward and plain backward at the train shape
+    mamba_train = training["train"][0]
+    rows[-1].update({
+        "train_launches": mamba_train["launches"]["ssd_scan"],
+        "train_shape": mamba_train["arch"] + " (8, 4096, 24, 64, 128) bf16",
+        "train_ms": training["ssd_autograd"]["mamba2-130m"][
+            "kernel_forward_ms"],
+        "train_plain_backward_ms": training["ssd_autograd"]["mamba2-130m"][
+            "plain_backward_ms"]})
+    rows[-2]["musicgen_launches"] = training["musicgen_serve"]["launches"][
+        "flash_attention"]
     if int8["launches"]["int8_encode"] != int8["launches"]["int8_decode"]:
         raise RuntimeError(f"int8 launches differ: {int8['launches']}")
     if int8["launches"]["fed_agg"] < 1 or topk["launches"]["fed_agg"] < 1:

@@ -1,8 +1,10 @@
-"""Carry params across frameworks as nested dicts of numpy arrays.
+"""Carry params and train states across frameworks as nested dicts of
+numpy arrays.
 
 The tree's keys, leaf shapes and dtypes stay as they are, so params
 written by the JAX package (``np.asarray`` of each leaf) load here
-unchanged, and the reverse.
+unchanged, and the reverse.  A train state differs in one leaf: the
+optimizer's step ``count``, a 0-d array there and a host int here.
 """
 from __future__ import annotations
 
@@ -26,3 +28,31 @@ def params_from_numpy(tree: Dict[str, Any],
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """Dict of tensors → the same dict of numpy arrays on the host."""
     return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+def train_state_from_numpy(tree: Dict[str, Any],
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """A train state ``{"params", "opt"}`` of array-likes, as the JAX
+    package's ``make_train_step`` holds it (the optimizer's ``count`` a 0-d
+    int array), → the port's: tensors on ``device``, ``count`` a host int
+    (``optim.adam`` keeps it on the host, so its bias corrections cost no
+    device sync)."""
+    opt = dict(tree["opt"])
+    count = opt.pop("count", None)
+    out = {"params": params_from_numpy(tree["params"], device),
+           "opt": params_from_numpy(opt, device)}
+    if count is not None:
+        out["opt"]["count"] = int(np.asarray(count))
+    return out
+
+
+def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's train state → the JAX package's layout in numpy arrays,
+    ``count`` an int32 0-d array as ``jnp.zeros((), jnp.int32)`` starts it."""
+    opt = dict(state["opt"])
+    count = opt.pop("count", None)
+    out = {"params": params_to_numpy(state["params"]),
+           "opt": params_to_numpy(opt)}
+    if count is not None:
+        out["opt"]["count"] = np.asarray(count, dtype=np.int32)
+    return out

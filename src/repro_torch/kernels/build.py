@@ -116,6 +116,21 @@ def check_status(lib: ctypes.CDLL, name: str, code: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({code})")
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when grad mode is on and an input of ``kernel`` requires grad.
+    The hand-written kernels have no backward (the JAX package's Pallas
+    kernels have none either, so ``jax.grad`` cannot differentiate them):
+    their outputs would leave autograd with no gradient and no error.  The
+    plain version raises too, so a CPU run fails where the card would."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: its hand-written kernel's output "
+            f"would carry no gradient, and the JAX package cannot "
+            f"differentiate its Pallas kernel either; call it under "
+            f"torch.no_grad() or on tensors that do not require grad")
+
+
 def stream(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as the C side takes it."""
     return torch.cuda.current_stream(t.device).cuda_stream

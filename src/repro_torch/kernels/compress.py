@@ -19,8 +19,9 @@ bit, not its eager oracle, which differs in the last bit of some scales.
 Each kernel wrapper (``int8_encode``, ``int8_decode``, ``topk_mask``)
 checks its inputs, then runs the plain PyTorch version beside it on a CPU
 tensor or launches the hand-written CUDA kernel (``csrc/compress.cu``) on
-a CUDA tensor; any other device raises.  Each counts its launches in its
-``launches`` attribute.  Kernel and plain version agree to the last bit.
+a CUDA tensor; any other device raises, and so does an input that
+requires grad under grad mode (``build.refuse_grad``: no backward).  Each
+counts its launches in its ``launches`` attribute.  Kernel and plain version agree to the last bit.
 ``topk_encode`` and ``topk_decode`` are plain PyTorch around ``topk_mask``,
 as in the JAX package, where ``lax.top_k`` and the scatter sit outside the
 Pallas body.
@@ -109,6 +110,7 @@ def int8_encode(x: torch.Tensor, chunk: int = 256
     """x: (P,) float32 → (q (n_chunks, chunk) int8, scale (n_chunks,)
     float32), n_chunks = ceil(P / chunk).  Values past P count as 0 and
     code to 0."""
+    build.refuse_grad("int8_encode", x)
     _check_flat("int8_encode", x)
     if int(chunk) != chunk or chunk < 1:
         raise ValueError(f"chunk must be a positive int, got {chunk!r}")
@@ -144,6 +146,7 @@ def int8_decode(q: torch.Tensor, scale: torch.Tensor,
     """Inverse of ``int8_encode``: (n_chunks, chunk) int8 codes and
     (n_chunks,) float32 scales → a fresh dense (length,) float32 vector,
     length ≤ n_chunks·chunk."""
+    build.refuse_grad("int8_decode", q, scale)
     if q.dim() != 2 or q.dtype != torch.int8:
         raise TypeError(f"q must be int8 (n_chunks, chunk), got {q.dtype} "
                         f"{tuple(q.shape)}")
@@ -193,6 +196,7 @@ def topk_mask(x: torch.Tensor, tau, last_keep) -> torch.Tensor:
     one-element tensors on x's device; tensors stay there, so the launch
     needs no host sync.
     """
+    build.refuse_grad("topk_mask", x, tau, last_keep)
     _check_flat("topk_mask", x)
     _check_device("topk_mask", x)
     tau = _one_value("tau", tau, x, (torch.float32,))

@@ -10,7 +10,9 @@ moment update (Reddi et al., arXiv:2003.00295), w' = w + lr·step, and
 
 Each wrapper checks its inputs, then runs the plain PyTorch version on
 a CPU tensor or launches the hand-written CUDA kernel
-(``csrc/fed_agg.cu``) on a CUDA tensor.  Any other device raises.  Each
+(``csrc/fed_agg.cu``) on a CUDA tensor.  Any other device raises, and so
+does an input that requires grad under grad mode (``build.refuse_grad``:
+the kernels have no backward; the FL merge runs without a graph).  Each
 wrapper counts its kernel launches in its ``launches`` attribute.  The
 plain versions take the K-sum in the kernels' order, k = 0, 1, …, with
 one rounding per multiply and per add, so on the same inputs kernel and
@@ -142,6 +144,7 @@ def fed_agg(updates: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     updates: (K, P) float32 or bfloat16; coeffs: (K,) float32 on the same
     device.  Returns a fresh (P,) tensor in the updates' dtype.
     """
+    build.refuse_grad("fed_agg", updates, coeffs)
     _check_updates(updates, coeffs)
     if updates.device.type == "cpu":
         return fed_agg_plain(updates, coeffs)
@@ -224,6 +227,7 @@ def fed_agg_apply(updates: torch.Tensor, coeffs: torch.Tensor,
     ``(new_params, new_m, new_v, update_norm)`` with
     ``update_norm = ‖Δ‖₂`` a 0-d fp32 tensor on the device.
     """
+    build.refuse_grad("fed_agg_apply", updates, coeffs, params, m, v)
     if opt not in APPLY_OPTS:
         raise ValueError(f"unknown server opt {opt!r}; available: "
                          f"{APPLY_OPTS}")
@@ -274,6 +278,7 @@ def fed_agg_sharded(updates: torch.Tensor, coeffs: torch.Tensor,
     device is copied into its slice, so no gather copies the result again.
     A size-1 mesh is the unsharded call.
     """
+    build.refuse_grad("fed_agg_sharded", updates, coeffs)
     if mesh.size <= 1:
         return fed_agg(updates, coeffs)
     _check_updates(updates, coeffs)
@@ -309,6 +314,7 @@ def fed_agg_apply_sharded(updates: torch.Tensor, coeffs: torch.Tensor,
     tails have zero updates, params and moments, so their Δ, moments and
     outputs stay exactly 0.  Outputs are gathered on the first device.
     """
+    build.refuse_grad("fed_agg_apply_sharded", updates, coeffs, params, m, v)
     if mesh.size <= 1:
         return fed_agg_apply(updates, coeffs, params, m, v,
                              lr, mix, b1, b2, eps, opt=opt)

@@ -1,5 +1,5 @@
 """Flash attention: causal, windowed, soft-capped GQA attention with an
-online softmax in fp32 (forward only).
+online softmax in fp32 (forward only: under autograd it raises).
 
 q is (B, H, S, d) and k, v are (B, Hkv, S, d) with H % Hkv == 0; query
 head h reads kv head h // (H // Hkv).  Scores are q·kᵀ/sqrt(d), capped as
@@ -184,7 +184,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     softcap: float = 0.0) -> torch.Tensor:
     """Attention of q (B, H, S, d) over k, v (B, Hkv, S, d), float32 or
     bfloat16, on one device → a fresh (B, H, S, d) tensor in q's dtype.
-    On the card the inputs must pass ``check_kernel_layout``."""
+    On the card the inputs must pass ``check_kernel_layout``.  It has no
+    backward: under autograd it raises (``build.refuse_grad``), on the CPU
+    too, as ``jax.grad`` raises on the Pallas kernel."""
+    build.refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, softcap)

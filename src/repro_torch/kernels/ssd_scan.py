@@ -1,4 +1,4 @@
-"""Mamba2 SSD chunked scan (state-space duality), forward only, in fp32.
+"""Mamba2 SSD chunked scan (state-space duality) in fp32.
 
 With x (b, l, h, p) already scaled by dt, a_dt (b, l, h) = A·dt (≤ 0) and
 B, C (b, l, h, n), the scan is the recurrence
@@ -32,6 +32,13 @@ for bit.
 The kernels read x, B and C with any batch, time and head strides as long
 as the last dimension is contiguous, so the head-broadcast views of B and
 C that models/ssm.py passes (head stride 0) are read in place.
+
+The kernels have no backward, as the Pallas kernel has none.  Under
+autograd ``ssd_scan`` runs as ``_SSDScan``: the kernels compute the
+forward, and the backward recomputes the plain version in fp32 from the
+saved inputs and returns its vector-Jacobian product (what ``jax.grad``
+of the JAX package's ``ssd_chunked`` computes).  So the kernel runs the
+forward of training, and the plain version its backward.
 """
 from __future__ import annotations
 
@@ -160,15 +167,10 @@ def ssd_scan_plain(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
     return (y, state) if return_state else y
 
 
-def ssd_scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
-             C: torch.Tensor, chunk: int = 128, return_state: bool = False
-             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The SSD scan of x (b, l, h, p), a_dt (b, l, h), B and C (b, l, h, n),
-    x, B and C float32 or bfloat16 on one device → a fresh (b, l, h, p)
-    tensor in x's dtype, and with ``return_state`` the fp32 (b, h, p, n)
-    final state.  On the card n must be at most 128 and the last dimension
-    of x, B and C contiguous."""
-    _check(x, a_dt, B, C, chunk)
+def _scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
+          C: torch.Tensor, chunk: int, return_state: bool):
+    """The scan without a graph: the plain version on a CPU tensor, the
+    kernels on a CUDA tensor (counted in ``ssd_scan.launches``)."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, a_dt, B, C, chunk, return_state)
     b, l, h, p = x.shape
@@ -196,6 +198,55 @@ def ssd_scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
     build.check_status(lib, "ssd_scan", code, "ssd_scan")
     ssd_scan.launches += 1
     return (y, state) if return_state else y
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan under autograd.  The forward is ``_scan`` (the kernels on
+    the card); the backward recomputes ``ssd_scan_plain`` in fp32 from the
+    saved inputs and returns its vector-Jacobian product, which is what
+    ``jax.grad`` differentiates in the JAX package (``ssd_chunked``: no
+    Pallas kernel there has a backward either).  The inputs are saved as
+    they came, so the head-broadcast views of B and C stay views; their
+    grads come back at the views' shape, and autograd sums them over the
+    heads through the ``expand`` that made the views.  All state lives in
+    ``ctx``, so ``torch.utils.checkpoint`` can re-run the forward."""
+
+    @staticmethod
+    def forward(ctx, x, a_dt, B, C, chunk, return_state):
+        ctx.save_for_backward(x, a_dt, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _scan(x, a_dt, B, C, chunk, return_state)
+
+    @staticmethod
+    def backward(ctx, gy, gstate=None):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
+        with torch.enable_grad(), torch.profiler.record_function(
+                "ssd_scan_plain_backward"):
+            outs = ssd_scan_plain(*inputs, ctx.chunk, return_state=True)
+            # an output whose grad is None went unused: it counts as zero
+            used = [(o, g) for o, g in zip(outs, (gy, gstate))
+                    if g is not None]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in used], [t for t in inputs if t.requires_grad],
+                [g for _, g in used], materialize_grads=True))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None, None)
+
+
+def ssd_scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, chunk: int = 128, return_state: bool = False
+             ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The SSD scan of x (b, l, h, p), a_dt (b, l, h), B and C (b, l, h, n),
+    x, B and C float32 or bfloat16 on one device → a fresh (b, l, h, p)
+    tensor in x's dtype, and with ``return_state`` the fp32 (b, h, p, n)
+    final state.  On the card n must be at most 128 and the last dimension
+    of x, B and C contiguous.  Differentiable: with grad mode on and an
+    input that requires grad autograd records ``_SSDScan``, whose
+    backward is the plain version's."""
+    _check(x, a_dt, B, C, chunk)
+    return _SSDScan.apply(x, a_dt, B, C, chunk, return_state)
 
 
 ssd_scan.launches = 0

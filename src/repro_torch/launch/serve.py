@@ -13,11 +13,14 @@ the card.  The port of the JAX package's examples/serve_decode.py.
         --full-width --batch 4 --prompt-len 4096 --new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
         --full-width --pallas-attention --prompt-len 4096 --new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \
+        --full-width --pallas-attention --prompt-len 1024 --new 8
 
 Weights are random, made from seed 0 (the prompt from seed 1).  Without
 ``--full-width`` the config is its ``.reduced()`` smoke variant, as in the
 reference example.  Mamba blocks run their prefill scan in the
-hand-written ``ssd_scan`` kernel.
+hand-written ``ssd_scan`` kernel.  A codebook model (musicgen-medium)
+takes (batch, n_codebooks, prompt-len) prompts.
 ``--pallas-attention`` sets the config's ``use_pallas_attention``: prefill
 attention (zamba2's shared block included) then runs in the hand-written
 ``flash_attention`` kernel.  ``--device`` defaults to ``cuda``.
@@ -39,7 +42,7 @@ from ..models.transformer import decode_step, init_params, prefill
 
 class Generation(NamedTuple):
     tokens: torch.Tensor          # (B, new) generated ids
-    prefill_logits: torch.Tensor  # (B, S, V) logits of the prompt
+    prefill_logits: torch.Tensor  # (B, S, V) (or n_cb·V) prompt logits
     prefill_s: float              # host seconds of the prefill
     decode_s: float               # host seconds of the decode loop
 
@@ -53,12 +56,14 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, new: int,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
              cache_dtype=torch.float32) -> Generation:
-    """Prefill ``prompt`` (B, S) into a cache of S + new positions, then
-    decode ``new`` tokens, greedily or by sampling at ``temperature``
-    (with ``generator``).  As in the reference example, the first decode
-    step feeds the prompt's last token again, at position S.  Times are
-    host seconds up to a synchronise of the prompt's device."""
-    B, S = prompt.shape
+    """Prefill ``prompt`` (B, S), or (B, n_cb, S) codebook tokens, into a
+    cache of S + new positions, then decode ``new`` tokens, greedily or by
+    sampling at ``temperature`` (with ``generator``).  As in the reference
+    example, the first decode step feeds the prompt's last token again,
+    at position S, and a codebook model picks from its first codebook's
+    logits and feeds the pick to every codebook.  Times are host seconds
+    up to a synchronise of the prompt's device."""
+    B, S = prompt.shape[0], prompt.shape[-1]
     device = prompt.device
     t0 = time.perf_counter()
     logits, cache = prefill(cfg, params, {"tokens": prompt},
@@ -66,7 +71,7 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, new: int,
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
-    tok = prompt[:, -1:]
+    tok = prompt[..., -1:]
     generated = []
     t0 = time.perf_counter()
     for i in range(new):
@@ -78,7 +83,8 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, new: int,
             nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
         else:
             nxt = torch.argmax(last, dim=-1)
-        tok = nxt[:, None]
+        tok = (nxt[:, None, None].expand(B, cfg.n_codebooks, 1)
+               if cfg.n_codebooks else nxt[:, None])
         generated.append(nxt)
     _sync(device)
     decode_s = time.perf_counter() - t0
@@ -107,8 +113,10 @@ def main() -> None:
     cfg = cfg.replace(use_pallas_attention=args.pallas_attention)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
     gen = torch.Generator(device=device).manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                           generator=gen, device=device)
+    shape = ((args.batch, cfg.n_codebooks, args.prompt_len)
+             if cfg.n_codebooks else (args.batch, args.prompt_len))
+    prompt = torch.randint(0, cfg.vocab, shape, generator=gen,
+                           device=device)
     out = generate(cfg, params, prompt, args.new, args.temperature, gen)
     n_new = args.new * args.batch
     print(json.dumps({

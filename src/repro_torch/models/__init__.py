@@ -3,10 +3,11 @@ from .small import (SMALL_MODELS, ModelDef, make_char_lstm, make_cnn,
                     make_speech_cnn)
 from .ssm import (init_mamba_cache, mamba_block, mamba_decode_step,
                   ssd_chunked)
-from .transformer import (decode_step, forward, init_cache, init_params,
-                          prefill)
+from .transformer import (decode_step, forward, grads_of, init_cache,
+                          init_params, loss_fn, make_train_step, prefill)
 
-__all__ = ["ArchConfig", "ModelDef", "decode_step", "forward", "init_cache",
-           "init_mamba_cache", "init_params", "make_char_lstm", "make_cnn",
-           "make_speech_cnn", "SMALL_MODELS", "mamba_block",
+__all__ = ["ArchConfig", "ModelDef", "decode_step", "forward", "grads_of",
+           "init_cache", "init_mamba_cache", "init_params", "loss_fn",
+           "make_char_lstm", "make_cnn", "make_speech_cnn",
+           "make_train_step", "SMALL_MODELS", "mamba_block",
            "mamba_decode_step", "param_count", "prefill", "ssd_chunked"]

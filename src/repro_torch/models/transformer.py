@@ -1,6 +1,8 @@
 """Decoder backbone: the port of the JAX package's models/transformer.py
 for the block kinds ``attn``, ``local``, ``mamba`` (Mamba2, models/ssm.py)
-and ``shared_attn`` (Zamba2's weight-tied full-attention block).
+and ``shared_attn`` (Zamba2's weight-tied full-attention block), with
+audio codebooks (musicgen: summed per-codebook embeddings of (B, n_cb, S)
+tokens, per-codebook logits (B, S, n_cb·V)).
 
 Params keep the reference's tree: the layer stack is ``n_super``
 superblocks (one repetition of cfg.pattern) whose params are stacked on a
@@ -8,9 +10,11 @@ leading axis under ``params["blocks"]["pos{i}"]``, plus an unrolled
 remainder of ``n_layers % period`` leading pattern positions under
 ``params["rem"]``; ``shared_attn`` positions hold no params of their own
 and all read ``params["shared_attn"]``.  ``lax.scan`` over the stack
-becomes a Python loop.  Block kind ``cross``, mixtures of experts and
-codebooks are not ported yet (ROADMAP Queue 1.9): every entry point
-raises ``NotImplementedError`` for such a config.
+becomes a Python loop; with ``cfg.remat`` each superblock of ``forward``
+runs under ``torch.utils.checkpoint`` when autograd records it (the
+reference's ``jax.checkpoint``).  Block kind ``cross`` and mixtures of
+experts are not ported yet (ROADMAP Queue 1.9): every entry point raises
+``NotImplementedError`` for such a config.
 
 Entry points:
   init_params(cfg, gen)                        → params
@@ -18,6 +22,8 @@ Entry points:
   prefill(cfg, params, batch)                  → (logits, cache)  (prefill)
   decode_step(cfg, params, cache, tokens, pos) → (logits, cache)  (decode)
   init_cache(cfg, batch_size, context_len)     → cache tree
+  loss_fn(cfg, params, batch)                  → mean token CE  (train)
+  make_train_step(cfg)                         → (train_step, init_state)
 
 Params live on the device of the ``torch.Generator`` that made them (or of
 the tensors loaded with ``convert.params_from_numpy``); batches and caches
@@ -30,13 +36,15 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..core.flatten import tree_map
+from ..core.flatten import tree_leaves, tree_map
+from ..optim import apply_updates, make_optimizer
 from .attention import (attn_init, decode_self_attention, init_kv_cache,
                         kv_to_cache, self_attention)
 from .config import ArchConfig
-from .layers import (dtype_of, embed_init, gated_mlp, gated_mlp_init,
-                     he_init, rms_norm, softcap)
+from .layers import (cross_entropy_loss, dtype_of, embed_init, gated_mlp,
+                     gated_mlp_init, he_init, rms_norm, softcap)
 from .ssm import init_mamba_cache, mamba_block, mamba_decode_step, mamba_init
 
 Pytree = Any
@@ -50,8 +58,6 @@ def _check_ported(cfg: ArchConfig) -> None:
     missing = sorted(set(cfg.pattern) - set(PORTED_KINDS))
     if cfg.n_experts > 0:
         missing.append("moe")
-    if cfg.n_codebooks > 0:
-        missing.append("codebooks")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to the PyTorch "
@@ -63,9 +69,13 @@ def _layer_positions(cfg: ArchConfig):
     return [i for i, k in enumerate(cfg.pattern) if k != "shared_attn"]
 
 
-def _slice(tree: Pytree, s: int) -> Pytree:
-    """Superblock ``s`` of a tree stacked on its leading axis (views)."""
-    return tree_map(lambda t: t[s], tree)
+def _unstack(tree: Pytree, n: int) -> list:
+    """The ``n`` superblocks of a tree stacked on its leading axis, as
+    views.  Under autograd one ``unbind`` a leaf stacks the superblocks'
+    grads once; indexing each superblock would add a zero-filled tensor
+    of the whole stack a superblock."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda p: p[s], parts) for s in range(n)]
 
 
 # ============================================================ param init
@@ -87,7 +97,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
     _check_ported(cfg)
     dtype = dtype_of(cfg.param_dtype)
     D, V = cfg.d_model, cfg.vocab
-    params: Dict[str, Any] = {"embed": embed_init(gen, (V, D), dtype)}
+    embed_shape = (cfg.n_codebooks, V, D) if cfg.n_codebooks else (V, D)
+    params: Dict[str, Any] = {"embed": embed_init(gen, embed_shape, dtype)}
     blocks: Dict[str, Any] = {}
     for i, kind in enumerate(cfg.pattern):
         if kind == "shared_attn":
@@ -106,7 +117,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
         params["shared_attn"] = _block_init(gen, "attn", cfg, dtype)
     params["final_norm"] = torch.zeros((D,), dtype=dtype, device=gen.device)
     if not cfg.tie_embeddings:
-        params["head"] = he_init(gen, (D, V), D, dtype)
+        params["head"] = he_init(gen, (D, V * max(1, cfg.n_codebooks)), D,
+                                 dtype)
     return params
 
 
@@ -148,35 +160,52 @@ def _superblock(params_i: Pytree, shared: Optional[Pytree], x: torch.Tensor,
 
 
 # ============================================================ embeddings
-def _embed(params: Pytree, tokens: torch.Tensor, dtype) -> torch.Tensor:
+def _embed(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
+           dtype) -> torch.Tensor:
+    if cfg.n_codebooks:
+        # tokens (B, n_cb, S) → the sum of per-codebook embeddings
+        embs = [params["embed"][c][tokens[:, c, :].long()]
+                for c in range(cfg.n_codebooks)]
+        return sum(embs).to(dtype)
     return params["embed"][tokens.long()].to(dtype)
 
 
 def _logits(cfg: ArchConfig, params: Pytree, h: torch.Tensor) -> torch.Tensor:
     if not cfg.tie_embeddings and "head" in params:
         out = torch.einsum("bsd,dv->bsv", h, params["head"].to(h.dtype))
+    elif cfg.n_codebooks:
+        out = torch.einsum("bsd,cvd->bscv", h, params["embed"].to(h.dtype))
+        out = out.reshape(*h.shape[:2], cfg.n_codebooks * cfg.vocab)
     else:
         out = torch.einsum("bsd,vd->bsv", h, params["embed"].to(h.dtype))
     return softcap(out, cfg.final_logit_softcap)
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    B, S = tokens.shape
+    """Positions 0..S-1 of (B, S) tokens, or (B, n_cb, S) codebook tokens."""
+    B, S = tokens.shape[0], tokens.shape[-1]
     return torch.arange(S, device=tokens.device)[None, :].expand(B, S)
 
 
 # ============================================================ forward
 def forward(cfg: ArchConfig, params: Pytree,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Full-sequence forward → logits (B, S, V)."""
+    """Full-sequence forward → logits (B, S, V), or (B, S, n_cb·V) for
+    codebook tokens (B, n_cb, S).  With ``cfg.remat`` and autograd on,
+    each superblock keeps only its input and recomputes the rest in the
+    backward pass."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     positions = _positions(tokens)
-    x = _embed(params, tokens, dtype_of(cfg.dtype))
+    x = _embed(cfg, params, tokens, dtype_of(cfg.dtype))
     shared = params.get("shared_attn")
-    for s in range(cfg.n_super):
-        x = _superblock(_slice(params["blocks"], s), shared, x, cfg,
-                        positions)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for params_i in _unstack(params["blocks"], cfg.n_super):
+        if remat:
+            x = checkpoint(_superblock, params_i, shared, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _superblock(params_i, shared, x, cfg, positions)
     positions_rem = _layer_positions(cfg)
     for j in range(cfg.n_rem):
         i = positions_rem[j]
@@ -184,6 +213,59 @@ def forward(cfg: ArchConfig, params: Pytree,
                          positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x)
+
+
+# ============================================================ loss / train
+def loss_fn(cfg: ArchConfig, params: Pytree,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean token cross-entropy of ``forward`` against ``batch["labels"]``
+    ((B, S), or (B, n_cb, S) for codebooks), in fp32; the logsumexp form
+    when ``cfg.efficient_ce`` is set."""
+    logits = forward(cfg, params, batch)
+    labels = batch["labels"]
+    if cfg.n_codebooks:
+        B, S = labels.shape[0], labels.shape[-1]
+        logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab)
+        logits = logits.transpose(1, 2)               # (B, n_cb, S, V)
+    return cross_entropy_loss(
+        logits, labels,
+        impl="logsumexp" if cfg.efficient_ce else "logsoftmax")
+
+
+def grads_of(cfg: ArchConfig, params: Pytree,
+             batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Pytree]:
+    """``(loss, grads)`` of ``loss_fn`` at ``params``, the grads a tree
+    shaped like it (zeros for a param the loss does not reach), as
+    ``jax.value_and_grad`` gives them; the loss is detached."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss = loss_fn(cfg, live, batch)
+        leaves = tree_leaves(live)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    by_leaf = dict(zip(map(id, leaves), grads))
+    return loss.detach(), tree_map(lambda t: by_leaf[id(t)], live)
+
+
+def make_train_step(cfg: ArchConfig):
+    """Returns ``(train_step, init_state)``.  ``init_state(gen)`` → state
+    ``{"params", "opt"}`` on ``gen``'s device; ``train_step(state, batch)``
+    → ``(state, loss)``: one step of ``cfg.optimizer`` at
+    ``cfg.learning_rate`` on ``loss_fn``'s grads, the loss a 0-d tensor on
+    the device (no host sync)."""
+    optimizer = make_optimizer(cfg.optimizer, cfg.learning_rate)
+
+    def init_state(gen: torch.Generator) -> Pytree:
+        params = init_params(cfg, gen)
+        return {"params": params, "opt": optimizer.init(params)}
+
+    def train_step(state: Pytree, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[Pytree, torch.Tensor]:
+        loss, grads = grads_of(cfg, state["params"], batch)
+        updates, opt = optimizer.update(grads, state["opt"], state["params"])
+        params = apply_updates(state["params"], updates)
+        return {"params": params, "opt": opt}, loss
+
+    return train_step, init_state
 
 
 # ============================================================ caches
@@ -254,12 +336,11 @@ def prefill(cfg: ArchConfig, params: Pytree, batch: Dict[str, torch.Tensor],
     S = tokens.shape[-1]
     cache_len = cache_len or S
     positions = _positions(tokens)
-    x = _embed(params, tokens, dtype_of(cfg.dtype))
+    x = _embed(cfg, params, tokens, dtype_of(cfg.dtype))
     shared = params.get("shared_attn")
 
     per_super = []
-    for s in range(cfg.n_super):
-        params_i = _slice(params["blocks"], s)
+    for params_i in _unstack(params["blocks"], cfg.n_super):
         new_cache = {}
         for i in range(len(cfg.pattern)):
             kind, p, window = _at(cfg, i, params_i, shared)
@@ -303,14 +384,15 @@ def _decode_block(kind: str, p: Pytree, x: torch.Tensor, blk_cache: Pytree,
 def decode_step(cfg: ArchConfig, params: Pytree, cache: Pytree,
                 tokens: torch.Tensor, pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Pytree]:
-    """One decode step. tokens: (B, 1); pos: (B,).  The cache's tensors
-    are updated in place; the same tree is returned."""
+    """One decode step. tokens: (B, 1) (codebooks: (B, n_cb, 1)); pos:
+    (B,).  The cache's tensors are updated in place; the same tree is
+    returned."""
     _check_ported(cfg)
-    x = _embed(params, tokens, dtype_of(cfg.dtype))
+    x = _embed(cfg, params, tokens, dtype_of(cfg.dtype))
     shared = params.get("shared_attn")
-    for s in range(cfg.n_super):
-        params_i = _slice(params["blocks"], s)
-        cache_i = _slice(cache["blocks"], s)     # views into the stack
+    # views into the stacks: the cache is written in place
+    for params_i, cache_i in zip(_unstack(params["blocks"], cfg.n_super),
+                                 _unstack(cache["blocks"], cfg.n_super)):
         for i in range(len(cfg.pattern)):
             kind, p, window = _at(cfg, i, params_i, shared)
             x, _ = _decode_block(kind, p, x, cache_i[f"pos{i}"], pos, cfg,

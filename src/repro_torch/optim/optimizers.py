@@ -95,7 +95,12 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     return Optimizer(init, update)
 
 
-OPTIMIZERS = {"sgd": sgd, "adam": adam}
+def adamw(learning_rate: float, weight_decay: float = 0.01,
+          **kw) -> Optimizer:
+    return adam(learning_rate, weight_decay=weight_decay, **kw)
+
+
+OPTIMIZERS = {"sgd": sgd, "adam": adam, "adamw": adamw}
 
 
 def make_optimizer(name: str, learning_rate: float, **kw) -> Optimizer:
@@ -118,3 +123,11 @@ def proximal_grad(grads: Pytree, params: Pytree, global_params: Pytree,
 def global_norm(tree: Pytree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(l.float()))
                           for l in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads: Pytree, max_norm: float) -> Pytree:
+    """grads scaled by min(1, max_norm / (‖grads‖₂ + 1e-9)), the scale a
+    device tensor (no host sync)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads)

@@ -489,3 +489,101 @@ def test_checkpoint_of_card_tensors_restores_on_card(tmp_path):
     for a, b in zip(tree_leaves(params), tree_leaves(ref_params)):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_grads_match_plain_on_card(dtype):
+    """Under autograd the scan's forward launches the kernel and its
+    backward is the plain version's: the grads of x, a_dt and the
+    head-broadcast B/C views' bases (summed over heads by autograd) equal
+    those of autograd through ssd_scan_plain within 1e-5 of each max
+    |grad| (the same fp32 graph on the same inputs), also under
+    torch.utils.checkpoint, which relaunches the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    b, l, h, p, n = 2, 300, 4, 64, 64
+    g = torch.Generator("cuda").manual_seed(9)
+    leaves = [(torch.randn((b, l, h, p), generator=g, device="cuda")
+               * 0.5).to(dtype),
+              -torch.rand((b, l, h), generator=g, device="cuda") * 0.3,
+              *((torch.randn((b, l, 1, n), generator=g, device="cuda")
+                 * 0.5).to(dtype) for _ in range(2))]
+    for t in leaves:
+        t.requires_grad_(True)
+    gy = torch.randn((b, l, h, p), generator=g, device="cuda").to(dtype)
+
+    def scan(fn, x, a, Bb, Cb):
+        return fn(x, a, Bb.expand(b, l, h, n), Cb.expand(b, l, h, n))
+
+    want = torch.autograd.grad(scan(ssd_scan_plain, *leaves), leaves, gy)
+    for remat in (False, True):
+        before = ssd_scan.launches
+        y = (torch.utils.checkpoint.checkpoint(
+            scan, ssd_scan, *leaves, use_reentrant=False) if remat
+            else scan(ssd_scan, *leaves))
+        got = torch.autograd.grad(y, leaves, gy)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == before + 1 + remat
+        for name, t, w in zip(("x", "a_dt", "B", "C"), got, want):
+            assert t.dtype == w.dtype and t.shape == w.shape
+            scale = float(w.float().abs().max())
+            assert scale > 0
+            torch.testing.assert_close(t, w, rtol=0, atol=1e-5 * scale,
+                                       msg=f"{name} remat {remat}")
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_autograd_on_card():
+    """flash_attention has no backward: with an input that requires grad
+    it raises before any launch, as the JAX package's Pallas kernel
+    cannot be differentiated; under no_grad it runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v = (torch.randn(1, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="flash_attention has no "
+                                           "backward"):
+        flash_attention(q.requires_grad_(True), k, v)
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_mamba_train_step_on_card_as_on_cpu():
+    """One make_train_step step of reduced mamba2-130m (fp32) on the card,
+    the scan's forward in the kernel, against the same step on the CPU:
+    the loss within 1e-5 relative, the Adam moments within 1e-4 relative
+    L2, and one launch a layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_map, tree_paths
+    from repro_torch.models import make_train_step
+
+    cfg = get_config("mamba2-130m").reduced().replace(efficient_ce=True)
+    step, init_state = make_train_step(cfg)
+    state = init_state(torch.Generator("cuda").manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (2, 2, 256), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1))
+    batch = {"tokens": tok[0], "labels": tok[1]}
+    cpu_state = {"params": tree_map(lambda t: t.cpu(), state["params"]),
+                 "opt": {"count": 0, **{k: tree_map(lambda t: t.cpu(), v)
+                                        for k, v in state["opt"].items()
+                                        if k != "count"}}}
+    before = ssd_scan.launches
+    card, loss = step(state, batch)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + cfg.n_layers
+    cpu, cpu_loss = step(cpu_state, {k: t.cpu() for k, t in batch.items()})
+    torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+    for key in ("m", "v"):
+        for path, t in tree_paths(card["opt"][key]):
+            w = cpu["opt"][key]
+            for part in path:
+                w = w[part]
+            rel = float((t.cpu() - w).norm() / w.norm().clamp(min=1e-30))
+            assert rel <= 1e-4, (key, path, rel)

@@ -26,7 +26,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.launch.mesh, repro_torch.core.device_batch, "
             "repro_torch.sharding.rules, repro_torch.faas.fleet, "
             "repro_torch.faas.profiles, repro_torch.checkpoint.checkpoint, "
-            "repro_torch.fl.checkpointing\n"
+            "repro_torch.fl.checkpointing, repro_torch.launch.pretrain, "
+            "repro_torch.optim.optimizers, repro_torch.kernels.ssd_scan\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]\n"
@@ -53,7 +54,7 @@ def test_no_source_imports_jax_or_repro():
     for module in ("fl/executor.py", "core/device_batch.py",
                    "launch/mesh.py", "sharding/rules.py", "faas/fleet.py",
                    "faas/profiles.py", "checkpoint/checkpoint.py",
-                   "fl/checkpointing.py"):
+                   "fl/checkpointing.py", "launch/pretrain.py"):
         assert PORT / module in files, module
     for path in files:
         for name in _imported_modules(path):
@@ -81,3 +82,10 @@ def test_entry_points_need_cuda_unless_told_cpu():
                               "PATH": "/usr/bin:/bin"})
     assert cli.returncode != 0
     assert "CUDA is not available" in cli.stderr
+    pretrain = subprocess.run([sys.executable, "-m",
+                               "repro_torch.launch.pretrain", "--steps", "1"],
+                              capture_output=True, text=True,
+                              env={"PYTHONPATH": str(REPO / "src"),
+                                   "PATH": "/usr/bin:/bin"})
+    assert pretrain.returncode != 0
+    assert "CUDA is not available" in pretrain.stderr

@@ -35,8 +35,9 @@ from torch_parity_common import (LAYER_TOL, LOGIT_TOL, check_serving_path,
                                  np_tree as _np_tree,
                                  tree_close as _tree_close)
 
+# musicgen-medium's codebooks are ported (tests/test_torch_autograd.py)
 UNPORTED = ("arctic-480b", "llama-3.2-vision-11b",
-            "llama4-maverick-400b-a17b", "musicgen-medium")
+            "llama4-maverick-400b-a17b")
 
 
 # ------------------------------------------------------------- configs
