@@ -19,7 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    The sharded wrappers run on two- and three-slot meshes of the one card
    (P = 6,603,710 pads by 1 on three) and must equal the unsharded
    kernels bit for bit (the norm within 1e-6); flash_attention is also
-   timed at Zamba2's shape, where SDPA computes the same function, and
+   timed at Zamba2's shape and at llama-3.2-vision-11b's (d 128, GQA
+   32 / 8), where SDPA computes the same function, and
    ssd_scan at one prompt, with its bf16 passes' device times
    (torch.profiler) and workspace bytes.
 3. The main paths on the full-width FEMNIST CNN (3 rounds, 8 clients a
@@ -76,6 +77,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    versions alone moves the logits by, fp32 within 1e-3), and in fp32 prefill
    of S tokens plus one decode step against prefill of S + 1 tokens
    (within 1e-3: the kernel's final state against the recurrence).
+   Then the rest of the zoo (run_zoo), each model freed before the next:
+   llama-3.2-vision-11b at full width and depth (fp32 params, 40
+   flash_attention launches a prefill, 8 gated cross blocks with xgate
+   set to 1.0, 1024 patch embeddings), llama4-maverick-400b-a17b at full
+   width cut to 2 layers and arctic-480b cut to 1 (bf16 params; one
+   group of 4096 tokens at capacity factor 1.25), each 2 prompts of 2048
+   tokens and 32 greedy new tokens, held as the Gemma 2 run is (an MoE
+   model's bf16 logits printed, not gated: a routing flip makes them
+   jump past any regrouping spread); the VLM's
+   cross path live in fp32, its fp32 prefill-then-decode continuation and
+   its decode cache's ck/cv equal to init_cross_cache's; each MoE block
+   on its own activations against a per-token oracle (MOE_ORACLE_*), and
+   router_load against the oracle's count expert by expert, the
+   dropped share printed.  Then sharded_decode_attention on a two-slot
+   mesh of the card at the VLM's decode shape against
+   reference_decode_attention (fp32, within 2e-5).
 4. Training (models.make_train_step, the decoders' train step; the scan's
    forward in the ssd_scan kernel under autograd, its backward the plain
    version's): the scan's Function at both training shapes against
@@ -234,6 +251,35 @@ SSD_KERNEL_NAMES = ("ssd_kernel", "chunk_state_kernel", "state_pass_kernel",
                     "chunk_output_kernel")
 # musicgen-medium serve: prompts, codebook frames a prompt, new tokens
 MUSICGEN_SERVE = (2, 1024, 8)
+# the rest of the zoo, served at full width after the SSM models: the VLM
+# at full depth (fp32 params), the MoE configs with depth cut to fit one
+# card (bf16 params): (arch, layers or None for all, param dtype)
+ZOO_B, ZOO_S, ZOO_NEW = 2, 2048, 32
+ZOO_SERVES = (("llama-3.2-vision-11b", None, "float32"),
+              ("llama4-maverick-400b-a17b", 2, "bfloat16"),
+              ("arctic-480b", 1, "bfloat16"))
+# the MoE block on the model's own activations against a per-token oracle
+# (routing, slots and drops recomputed on the host, each kept pair's gated
+# MLP in fp32 from the bf16 weights, weighted by the bf16-rounded w):
+# within MOE_ORACLE_ATOL·A + MOE_ORACLE_RTOL·|want| element by element, A
+# the sum over the token's kept pairs of w·Σ_f |h_f·wd_f| (and the dense
+# MLP's Σ_f |h_f·wd_f|).  The block rounds a, u, act(a), h, the experts'
+# outputs and the combine to bf16: four roundings of 2^-8 along h's chain
+# give 2^-6·A, the outputs' 2^-8·(A + |want|); the bound doubles that.
+# That bound holds whatever the rounding's signs, and at d_ff 8192 it is
+# about twice |want|: a dropped or misrouted pair would pass it.  So each
+# token's output is also held within MOE_ORACLE_REL_L2 relative L2 of the
+# oracle's: rounding's random signs leave ~1 %, one pair of the token's
+# k missing or misrouted moves it by tens of %.
+MOE_ORACLE_TOKENS = 64
+MOE_ORACLE_ATOL = 2.0 ** -5
+MOE_ORACLE_RTOL = 2.0 ** -7
+MOE_ORACLE_REL_L2 = 2.0 ** -4
+# sharded_decode_attention on a two-slot mesh of the card at the VLM's
+# decode shape (B, H, K, S, hd), fp32, against reference_decode_attention
+# within FLASH_DECODE_TOL (tests/test_flash_decode.py's bound)
+FLASH_DECODE_SHAPE = (2, 32, 8, ZOO_S + ZOO_NEW, 128)
+FLASH_DECODE_TOL = 2e-5
 # published peaks of the H100 (SXM / PCIe data sheets)
 FP32_FLOPS = {"sxm": 67e12, "pcie": 51e12}
 BF16_FLOPS = {"sxm": 989e12, "pcie": 756e12}     # dense tensor cores
@@ -907,6 +953,42 @@ def check_flash_attention(gen, part: str) -> dict:
                 *zc, is_causal=True), runs=5, warmup=2),
     })
     del zq, zk, zv, zc
+    # llama-3.2-vision-11b's self attention (the MoE configs' too, with 40
+    # and 56 heads): hd 128, GQA 32 / 8, causal, no softcap, no window;
+    # SDPA computes the same function here
+    vB, vH, vHkv, vS, vd = ZOO_B, 32, 8, ZOO_S, 128
+    vq = _randn((vB, vS, vH, vd), gen, torch.bfloat16).transpose(1, 2)
+    vk, vv = (_randn((vB, vS, vHkv, vd), gen, torch.bfloat16)
+              .transpose(1, 2) for _ in range(2))
+    got = flash_attention(vq, vk, vv)
+    want = flash_attention_plain(vq, vk, vv)
+    torch.cuda.synchronize()
+    c = check_flash_call(got, vq, vk, vv, want, {},
+                         "flash_attention llama-3.2-vision shape")
+    log(f"flash_attention llama-3.2-vision shape: max |err| "
+        f"{c['max_err']:.3g}, {c['ratio']:.3f} of the bound, median |want| "
+        f"{c['median_want']:.3g}, median atol {c['median_atol']:.3g}")
+    err = max(err, c["max_err"])
+    worst[torch.bfloat16] = max(worst[torch.bfloat16], c["ratio"])
+    del got, want
+    flops = 4.0 * vd * _attended_pairs(vS, None) * vB * vH
+    v_bytes = 2.0 * (2 * vq.numel() + vk.numel() + vv.numel())
+    bound, bound_by = bound_ms(v_bytes, flops, part, BF16_FLOPS)
+    vc_ = [t.contiguous() for t in (vq, vk, vv)]
+    row.update({
+        "vlm_ms": time_ms(lambda: flash_attention(vq, vk, vv), runs=5,
+                          warmup=2),
+        "vlm_call_ms": time_ms(lambda: flash_attention(vq, vk, vv), runs=5,
+                               warmup=1, hold=False),
+        "vlm_plain_ms": time_ms(lambda: flash_attention_plain(vq, vk, vv),
+                                runs=3, warmup=1),
+        "vlm_bound_ms": bound, "vlm_bound_by": bound_by,
+        "vlm_gflop": flops / 1e9,
+        "vlm_library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                *vc_, is_causal=True, enable_gqa=True), runs=5, warmup=2),
+    })
+    del vq, vk, vv, vc_
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     row.update({
         "max_abs_err": err,
@@ -923,7 +1005,9 @@ def check_flash_attention(gen, part: str) -> dict:
                  f"ms = global layer, local_ms = window 4096, nocap_ms = "
                  f"global without softcap; zamba_ = "
                  f"B={zB} H=Hkv={zH} S={zS} d={zd} bf16 causal, library "
-                 f"SDPA computes the same function there",
+                 f"SDPA computes the same function there; vlm_ = B={vB} "
+                 f"H={vH} Hkv={vHkv} S={vS} d={vd} bf16 causal, the same "
+                 f"function as SDPA",
         "mbytes": n_bytes / 1e6,
     })
     log(json.dumps({"kernel_check": row}))
@@ -1736,16 +1820,20 @@ def _ssd_checked_per_call(report: dict):
         ssm.ssd_scan = kernel
 
 
-def profile_decode(cfg, params, prompt, steps: int = 4) -> dict:
-    """``steps`` decode steps after a prefill, under torch.profiler: host
-    time a step against the card's busy time."""
+def profile_decode(cfg, params, prompt, steps: int = 4,
+                   image_embeds=None) -> dict:
+    """``steps`` decode steps after a prefill (with the VLM's
+    ``image_embeds``), under torch.profiler: host time a step against the
+    card's busy time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import decode_step, prefill
 
     B, S = prompt.shape
-    logits, cache = prefill(cfg, params, {"tokens": prompt},
-                            cache_len=S + steps + 1,
+    batch = {"tokens": prompt}
+    if image_embeds is not None:
+        batch["image_embeds"] = image_embeds
+    logits, cache = prefill(cfg, params, batch, cache_len=S + steps + 1,
                             cache_dtype=torch.float32)
     del logits
     tok = prompt[:, -1:]
@@ -1860,39 +1948,13 @@ def run_serve(flash_row: dict) -> dict:
     out.update({
         "plain_prefill_s": plain.prefill_s,
         "plain_decode_ms_per_step": 1e3 * plain.decode_s / SERVE_NEW,
-        "max_abs_logit_diff_vs_plain_path": _max_abs_diff(
-            logits, plain.prefill_logits),
         "greedy_agree_share": float((run.tokens == plain.tokens)
                                     .float().mean()),
         "first_disagreeing_step": int(first[0]) if len(first) else None,
     })
-    with _attention_in_plain_version():
-        twin, _ = prefill(cfg, params, batch)
-    out["max_abs_logit_diff_vs_plain_version"] = _max_abs_diff(logits, twin)
-    # the bf16 model's sensitivity: the plain version against itself with
-    # p rounded to bf16
-    with _attention_in_plain_version(p_in_bf16=True):
-        regrouped, _ = prefill(cfg, params, batch)
-    out["plain_p_bf16_vs_plain_max_abs_diff"] = _max_abs_diff(regrouped, twin)
-    out["logit_diff_bound"] = (SERVE_REGROUP_FACTOR
-                               * out["plain_p_bf16_vs_plain_max_abs_diff"])
-    del twin, regrouped
-    report = {"calls": 0, "max_err": 0.0, "max_err_over_bound": 0.0}
-    with _flash_checked_per_call(report):
-        prefill(cfg, params, batch)
-    if report["calls"] != cfg.n_layers:
-        raise RuntimeError(f"serve: {report['calls']} flash_attention calls "
-                           f"checked, want {cfg.n_layers}")
-    out["per_call_check"] = report
-    truth, _ = prefill(plain_cfg.replace(dtype="float32"), params, batch)
-    out["kernel_path_max_err_vs_fp32"] = _max_abs_diff(logits, truth)
-    out["plain_path_max_err_vs_fp32"] = _max_abs_diff(plain.prefill_logits,
-                                                      truth)
+    held = {"kernel": logits, "plain": plain.prefill_logits}
     del run, plain, logits
-    k32, _ = prefill(cfg.replace(dtype="float32"), params, batch)
-    out["fp32_max_abs_logit"] = float(truth.abs().max())
-    out["fp32_max_abs_diff"] = _max_abs_diff(k32, truth)
-    del k32, truth
+    _serve_checks(cfg, params, batch, held, out, cfg.n_layers)
 
     # two layers (one local, one global) in fp32: kernel vs plain path
     cfg2 = cfg.replace(n_layers=2, dtype="float32")
@@ -1908,22 +1970,11 @@ def run_serve(flash_row: dict) -> dict:
     out["decode_profile"] = profile_decode(cfg, params, prompt)
     log(json.dumps({"serve": out}))
 
-    if not out["max_abs_logit_diff_vs_plain_version"] <= out[
-            "logit_diff_bound"]:
-        raise RuntimeError(
-            f"serve: prefill logits differ from the kernel's plain version "
-            f"by {out['max_abs_logit_diff_vs_plain_version']:.4g} > "
-            f"{out['logit_diff_bound']:.4g}")
-    if not out["kernel_path_max_err_vs_fp32"] <= out[
-            "plain_path_max_err_vs_fp32"]:
-        raise RuntimeError(
-            f"serve: the kernel path is further from the fp32 model "
-            f"({out['kernel_path_max_err_vs_fp32']:.4g}) than the plain "
-            f"path ({out['plain_path_max_err_vs_fp32']:.4g})")
-    for key in ("fp32_max_abs_diff", "fp32_2layer_max_abs_diff"):
-        if not out[key] <= FP32_LOGIT_TOL:
-            raise RuntimeError(f"serve: {key} {out[key]:.4g} > "
-                               f"{FP32_LOGIT_TOL}")
+    _serve_gates(SERVE_ARCH, out, vs_fp32=True)
+    if not out["fp32_2layer_max_abs_diff"] <= FP32_LOGIT_TOL:
+        raise RuntimeError(f"serve: fp32_2layer_max_abs_diff "
+                           f"{out['fp32_2layer_max_abs_diff']:.4g} > "
+                           f"{FP32_LOGIT_TOL}")
     return out
 
 
@@ -2062,6 +2113,417 @@ def run_ssm_serve(arch: str, batch: int, S: int, pallas: bool) -> dict:
         if not out[key] <= FP32_LOGIT_TOL:
             raise RuntimeError(f"{arch} serve: {key} {out[key]:.4g} > "
                                f"{FP32_LOGIT_TOL}")
+    return out
+
+
+# ------------------------------------------------------------ the rest of
+# the zoo: cross attention (VLM) and mixtures of experts
+def _serve_checks(cfg, params, batch: dict, held: dict, out: dict,
+                  n_attn: int) -> None:
+    """The serve runs' checks of a bf16 model with attention in
+    flash_attention, written into ``out`` (gated by _serve_gates): its
+    prefill logits ``held["kernel"]`` against the same model with
+    attention in the kernel's plain version, beside SERVE_REGROUP_FACTOR
+    times what rounding p to bf16 in the plain version alone moves them
+    by; every kernel call against its plain version on the model's own
+    activations (held here); the kernel path's and the plain attention
+    path's (``held["plain"]``, or a prefill of it) distance to the fp32
+    model; and the fp32 model, kernel against plain path.  ``held`` is
+    emptied before the fp32 kernel path runs, so that a caller who keeps
+    no other reference frees the bf16 logits for it."""
+    from repro_torch.models import prefill
+
+    plain_cfg = cfg.replace(use_pallas_attention=False)
+    with _attention_in_plain_version():
+        twin, _ = prefill(cfg, params, batch)
+    logits = held["kernel"]
+    out["max_abs_logit_diff_vs_plain_version"] = _max_abs_diff(logits, twin)
+    with _attention_in_plain_version(p_in_bf16=True):
+        regrouped, _ = prefill(cfg, params, batch)
+    out["plain_p_bf16_vs_plain_max_abs_diff"] = _max_abs_diff(regrouped, twin)
+    out["logit_diff_bound"] = (SERVE_REGROUP_FACTOR
+                               * out["plain_p_bf16_vs_plain_max_abs_diff"])
+    del twin, regrouped
+    report = {"calls": 0, "max_err": 0.0, "max_err_over_bound": 0.0}
+    with _flash_checked_per_call(report):
+        prefill(cfg, params, batch)
+    if report["calls"] != n_attn:
+        raise RuntimeError(f"{cfg.name}: {report['calls']} flash_attention "
+                           f"calls checked, want {n_attn}")
+    out["per_call_check"] = report
+    plain_logits = held.get("plain")
+    if plain_logits is None:
+        plain_logits, _ = prefill(plain_cfg, params, batch)
+    truth, _ = prefill(plain_cfg.replace(dtype="float32"), params, batch)
+    out["max_abs_logit_diff_vs_plain_path"] = _max_abs_diff(logits,
+                                                            plain_logits)
+    out["kernel_path_max_err_vs_fp32"] = _max_abs_diff(logits, truth)
+    out["plain_path_max_err_vs_fp32"] = _max_abs_diff(plain_logits, truth)
+    held.clear()
+    del logits, plain_logits
+    k32, _ = prefill(cfg.replace(dtype="float32"), params, batch)
+    out["fp32_max_abs_logit"] = float(truth.abs().max())
+    out["fp32_max_abs_diff"] = _max_abs_diff(k32, truth)
+    del k32, truth
+
+
+def _serve_gates(name: str, out: dict, regroup: bool = True,
+                 vs_fp32: bool = False) -> None:
+    """Raise unless _serve_checks' numbers in ``out`` hold: the fp32 model's
+    kernel path within FP32_LOGIT_TOL of its plain path; with ``regroup``,
+    the bf16 logits within ``logit_diff_bound`` of the plain version's;
+    with ``vs_fp32``, the kernel path no further from the fp32 model than
+    the plain attention path."""
+    if regroup and not out["max_abs_logit_diff_vs_plain_version"] <= out[
+            "logit_diff_bound"]:
+        raise RuntimeError(
+            f"{name} serve: prefill logits differ from the kernel's plain "
+            f"version by {out['max_abs_logit_diff_vs_plain_version']:.4g} "
+            f"> {out['logit_diff_bound']:.4g}")
+    if vs_fp32 and not out["kernel_path_max_err_vs_fp32"] <= out[
+            "plain_path_max_err_vs_fp32"]:
+        raise RuntimeError(
+            f"{name} serve: the kernel path is further from the fp32 model "
+            f"({out['kernel_path_max_err_vs_fp32']:.4g}) than the plain "
+            f"path ({out['plain_path_max_err_vs_fp32']:.4g})")
+    if not out["fp32_max_abs_diff"] <= FP32_LOGIT_TOL:
+        raise RuntimeError(f"{name} serve: fp32 kernel against plain path "
+                           f"{out['fp32_max_abs_diff']:.4g} > "
+                           f"{FP32_LOGIT_TOL}")
+
+
+@contextlib.contextmanager
+def _moe_captured(calls: list):
+    """Record each MoE block's params, input and output (the model's own
+    activations) for the length of the block."""
+    from repro_torch.models import transformer
+
+    block = transformer.moe_block
+
+    def recorded(p, x, cfg):
+        y = block(p, x, cfg)
+        calls.append((p, x, y))
+        return y
+
+    transformer.moe_block = recorded
+    try:
+        yield
+    finally:
+        transformer.moe_block = block
+
+
+def _moe_oracle(p, x, y, cfg) -> dict:
+    """Hold one MoE block's output y against a per-token oracle: the
+    routing recomputed on the host (each token's top-k experts by the
+    router's fp32 probs, ties to the lowest index; the slots in token
+    order choice by choice, the occupancy running on; a slot at or past
+    the capacity drops the pair), then for MOE_ORACLE_TOKENS tokens (up to
+    half of them with a dropped pair, the rest drawn from seed 0) each
+    kept pair's
+    gated MLP in fp32 from the bf16 weights, weighted by the bf16-rounded
+    w, plus the dense MLP; within MOE_ORACLE_ATOL·A + MOE_ORACLE_RTOL·|want|
+    element by element and MOE_ORACLE_REL_L2 relative L2 a token.
+    The capacity is the reference's rule written out here, and
+    router_load is held expert by expert against the count of each
+    token's top-k experts by its router logits.  Also the share of dropped
+    (token, choice) pairs."""
+    import numpy as np
+
+    from repro_torch.models.moe import router_load
+
+    B, S, D = x.shape
+    T, k, E = B * S, cfg.top_k, cfg.n_experts
+    if T > cfg.moe_group_size:
+        raise RuntimeError(f"the oracle takes one group, not {T} tokens")
+    capacity = max(1, int(T * k / E * cfg.capacity_factor))
+    flat = x.reshape(T, D)
+    logits = flat.float() @ p["router"].float()
+    load_want = np.bincount(np.argsort(
+        -logits.cpu().numpy(), axis=1, kind="stable")[:, :k].ravel(),
+        minlength=E)
+    probs_np = torch.softmax(logits, dim=-1).cpu().numpy()
+    del logits
+    order = np.argsort(-probs_np, axis=1, kind="stable")[:, :k]
+    topv = np.take_along_axis(probs_np, order, axis=1)
+    w = topv / np.maximum(topv.sum(axis=1, keepdims=True), np.float32(1e-9))
+    slot = np.zeros((T, k), dtype=np.int64)
+    occupancy = np.zeros(E, dtype=np.int64)
+    for c in range(k):
+        for t in range(T):
+            slot[t, c] = occupancy[order[t, c]]
+            occupancy[order[t, c]] += 1
+    kept = slot < capacity
+    dropped_tokens = np.nonzero(~kept.all(axis=1))[0]
+    half = min(len(dropped_tokens), MOE_ORACLE_TOKENS // 2)
+    pick = set(dropped_tokens[np.linspace(0, len(dropped_tokens) - 1,
+                                          half).astype(int)].tolist())
+    for t in np.random.default_rng(0).permutation(T).tolist():
+        if len(pick) >= MOE_ORACLE_TOKENS:
+            break
+        pick.add(t)
+    pick = torch.tensor(sorted(pick), device=x.device)
+    w_bf16 = torch.from_numpy(w).to(x.device, torch.bfloat16).float()
+    xs = flat[pick].float()                                # (n, D)
+    want = torch.zeros_like(xs)
+    scale = torch.zeros_like(xs)
+
+    def mlp(wg, wu, wd, rows):
+        a = rows @ wg.float()
+        h = (torch.nn.functional.silu(a) if cfg.act == "silu" else
+             torch.nn.functional.gelu(a, approximate="tanh")) * (
+            rows @ wu.float())
+        return h @ wd.float(), h.abs() @ wd.float().abs()
+
+    order_t = torch.from_numpy(order).to(x.device)
+    kept_t = torch.from_numpy(kept).to(x.device)
+    for e in sorted({int(order[t, c]) for t in pick.tolist()
+                     for c in range(k) if kept[t, c]}):
+        for c in range(k):
+            sel = ((order_t[pick, c] == e) & kept_t[pick, c]).nonzero()[:, 0]
+            if not len(sel):
+                continue
+            out, mag = mlp(p["wg"][e], p["wu"][e], p["wd"][e], xs[sel])
+            wt = w_bf16[pick[sel], c][:, None]
+            want[sel] += wt * out
+            scale[sel] += wt * mag
+    if cfg.parallel_dense_mlp:
+        out, mag = mlp(p["dense"]["wg"], p["dense"]["wu"], p["dense"]["wd"],
+                       xs)
+        want += out
+        scale += mag
+    got = y.reshape(T, D)[pick].float()
+    bound = MOE_ORACLE_ATOL * scale + MOE_ORACLE_RTOL * want.abs()
+    ratio = err_over_bound(got, want, bound)
+    rel_l2 = float(((got - want).norm(dim=1) / want.norm(dim=1)).max())
+    load = router_load(p, x, cfg).cpu().numpy()
+    res = {"tokens": T, "capacity": capacity,
+           "dropped_pair_share": float(1.0 - kept.mean()),
+           "tokens_with_a_dropped_pair": int(len(dropped_tokens)),
+           "router_load_sum": int(load.sum()),
+           "router_load_max": int(load.max()),
+           "oracle_tokens": int(len(pick)),
+           "oracle_max_err": max_abs_err(got, want),
+           "oracle_err_over_bound": ratio,
+           "oracle_max_token_rel_l2": rel_l2,
+           "oracle_median_abs_want": float(want.abs().median())}
+    if res["router_load_sum"] != T * k or not np.array_equal(load,
+                                                             load_want):
+        raise RuntimeError(f"{cfg.name}: router_load (sum "
+                           f"{res['router_load_sum']}, want {T * k}) is not "
+                           f"the oracle's count at "
+                           f"{np.nonzero(load != load_want)[0].tolist()}")
+    if not (ratio <= 1.0 and rel_l2 <= MOE_ORACLE_REL_L2):
+        raise RuntimeError(f"{cfg.name}: the MoE block is {ratio:.4g} of "
+                           f"the oracle's bound away from it, a token "
+                           f"{rel_l2:.4g} in relative L2")
+    return res
+
+
+def run_zoo_serve(arch: str, n_layers, param_dtype: str) -> dict:
+    """One of the last three configs at full width, random weights from
+    seed 0, bf16 activations, fp32 cache: prefill ZOO_B prompts of ZOO_S
+    tokens with self attention in flash_attention (one launch a layer)
+    and decode ZOO_NEW greedy tokens, then _serve_checks (an MoE model's
+    bf16 logits not gated by the regrouping spread).
+
+    The VLM (llama-3.2-vision-11b, full depth, fp32 params): its 8 cross
+    blocks' xgate set to 1.0 (init's 0 would hide the cross path), 1024
+    patch embeddings (normal × 0.1, seed 2, as launch/serve.py makes
+    them).  The fp32 model's logits with the embeddings must differ from
+    those with zero embeddings by more than FP32_LOGIT_TOL (in bf16 the
+    difference is printed beside the regrouping spread: averaged over 1024
+    random patches, the cross term moves the logits less than rounding p
+    to bf16 does); in fp32, prefill of S tokens and one decode step must
+    match prefill of S + 1 tokens within FP32_LOGIT_TOL; and the decode
+    cache's ck/cv (after a decode step) must equal init_cross_cache of the
+    embeddings and warm_cross_caches' bit for bit.
+
+    The MoE configs (depth cut to ``n_layers``, bf16 params): one token
+    group (ZOO_B·ZOO_S = moe_group_size) at capacity factor 1.25; each
+    MoE block of a prefill held against _moe_oracle."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    param_count, prefill, warm_cross_caches)
+    from repro_torch.models.attention import init_cross_cache
+
+    cfg = get_config(arch).replace(use_pallas_attention=True,
+                                   param_dtype=param_dtype)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_cross = cfg.n_super * cfg.pattern.count("cross")
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "cross":
+            params["blocks"][f"pos{i}"]["xgate"].fill_(1.0)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # the reference's analytic count leaves out each cross block's xgate
+    if n_params != param_count(cfg) + n_cross:
+        raise RuntimeError(f"{arch}: {n_params} params, not "
+                           f"{param_count(cfg)} + {n_cross}")
+    prompt_1 = torch.randint(0, cfg.vocab, (ZOO_B, ZOO_S + 1),
+                             device="cuda", generator=torch.Generator(
+                                 device="cuda").manual_seed(1))
+    prompt = prompt_1[:, :ZOO_S]
+    feats = None
+    batch = {"tokens": prompt}
+    if cfg.n_patches:
+        feats = torch.randn((ZOO_B, cfg.n_patches, cfg.d_model),
+                            device="cuda", generator=torch.Generator(
+                                device="cuda").manual_seed(2)) * 0.1
+        batch["image_embeds"] = feats
+    generate(cfg, params, prompt[:, :256], 2, image_embeds=feats)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    run = generate(cfg, params, prompt, ZOO_NEW, image_embeds=feats)
+    launches = {k.__name__: k.launches for k in KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": cfg.n_layers}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        raise RuntimeError(f"{arch} serve: launches {launches}, want {want}")
+    logits = run.prefill_logits
+    _check_generation(arch, run, (ZOO_B, ZOO_S, cfg.vocab))
+    out = {"run": f"{arch} serve", "arch": arch, "layers": cfg.n_layers,
+           "param_dtype": param_dtype, "batch": ZOO_B, "prompt_len": ZOO_S,
+           "new": ZOO_NEW, "params": n_params, "init_s": init_s,
+           "prefill_s": run.prefill_s,
+           "prefill_tok_per_s": ZOO_B * ZOO_S / run.prefill_s,
+           "decode_ms_per_step": 1e3 * run.decode_s / ZOO_NEW,
+           "decode_tok_per_s": ZOO_B * ZOO_NEW / run.decode_s,
+           "peak_gb": peak_gb, "max_abs_logit": float(logits.abs().max()),
+           "launches": launches}
+    del run
+    if cfg.n_patches:
+        # the cross path is live: the embeddings move the logits.  In bf16
+        # printed beside the regrouping spread; held in fp32 below, where
+        # the model's own rounding is far below FP32_LOGIT_TOL
+        zeros = dict(batch, image_embeds=torch.zeros_like(feats))
+        blind, _ = prefill(cfg, params, zeros)
+        out["logit_diff_vs_zero_embeddings"] = _max_abs_diff(logits, blind)
+        del blind
+    held = {"kernel": logits}
+    del logits
+    _serve_checks(cfg, params, batch, held, out, cfg.n_layers)
+    if cfg.n_patches:
+        cfg32 = cfg.replace(dtype="float32")
+        full, _ = prefill(cfg32, params, dict(batch, tokens=prompt_1))
+        blind, _ = prefill(cfg32, params, dict(zeros, tokens=prompt_1))
+        out["fp32_logit_diff_vs_zero_embeddings"] = _max_abs_diff(full,
+                                                                  blind)
+        del blind
+        if not out["fp32_logit_diff_vs_zero_embeddings"] > FP32_LOGIT_TOL:
+            raise RuntimeError(
+                f"{arch}: the fp32 logits move by "
+                f"{out['fp32_logit_diff_vs_zero_embeddings']:.4g} with the "
+                f"embeddings, within {FP32_LOGIT_TOL}: the cross path is "
+                f"dead")
+        # fp32 prefill of S tokens and a decode step (its cross attention
+        # from the cache's ck/cv) against prefill of S + 1 tokens
+        _, cache = prefill(cfg32, params, batch, cache_len=ZOO_S + 1,
+                           cache_dtype=torch.float32)
+        pos = torch.full((ZOO_B,), ZOO_S, dtype=torch.int64, device="cuda")
+        step, _ = decode_step(cfg32, params, cache, prompt_1[:, ZOO_S:], pos)
+        out["fp32_continuation_max_abs_diff"] = float(
+            (step[:, 0].float() - full[:, -1].float()).abs().max())
+        del step, full, cache
+        if not out["fp32_continuation_max_abs_diff"] <= FP32_LOGIT_TOL:
+            raise RuntimeError(
+                f"{arch}: fp32 decode after prefill differs from the longer "
+                f"prefill by {out['fp32_continuation_max_abs_diff']:.4g}")
+        _, cache = prefill(cfg, params, batch, cache_len=ZOO_S + 2,
+                           cache_dtype=torch.float32)
+        decode_step(cfg, params, cache, prompt[:, -1:], pos)
+        warm = warm_cross_caches(cfg, params,
+                                 init_cache(cfg, ZOO_B, ZOO_S + 2,
+                                            torch.float32, device="cuda"),
+                                 feats)
+        for i, kind in enumerate(cfg.pattern):
+            if kind != "cross":
+                continue
+            for s in range(cfg.n_super):
+                xattn = {n: t[s] for n, t in
+                         params["blocks"][f"pos{i}"]["xattn"].items()}
+                cc = init_cross_cache(xattn, feats.to(torch.bfloat16),
+                                      torch.float32)
+                for key in ("ck", "cv"):
+                    got = cache["blocks"][f"pos{i}"][key][s]
+                    if not (torch.equal(got, cc[key]) and torch.equal(
+                            got, warm["blocks"][f"pos{i}"][key][s])):
+                        raise RuntimeError(f"{arch}: the decode cache's "
+                                           f"{key} of cross block {s} is not "
+                                           f"init_cross_cache's")
+        out["cross_cache_checked_blocks"] = n_cross
+        del cache, warm
+    if cfg.n_experts:
+        calls = []
+        with _moe_captured(calls):
+            prefill(cfg, params, batch)
+        out["moe_blocks"] = [_moe_oracle(p, x, y, cfg) for p, x, y in calls]
+        if len(calls) != sum(cfg.use_moe(i % len(cfg.pattern))
+                             for i in range(cfg.n_layers)):
+            raise RuntimeError(f"{arch}: {len(calls)} MoE blocks captured")
+        del calls
+    out["decode_profile"] = profile_decode(cfg, params, prompt,
+                                           image_embeds=feats)
+    del params
+    torch.cuda.empty_cache()
+    # an MoE model's bf16 logits jump where a routing flips, so the
+    # regrouping spread bounds nothing there (see PERF.md §4): its kernel
+    # is held by the per-call check and the fp32 gate alone
+    out["logit_diff_gated"] = not cfg.n_experts
+    log(json.dumps({"serve": out}))
+    _serve_gates(arch, out, regroup=out["logit_diff_gated"])
+    return out
+
+
+def check_sharded_decode(part: str) -> dict:
+    """sharded_decode_attention over a two-slot mesh (cuda:0, cuda:0) at
+    the VLM's decode shape, fp32, against reference_decode_attention
+    within FLASH_DECODE_TOL, both timed (host-paced calls)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.flash_decode import (reference_decode_attention,
+                                                   sharded_decode_attention)
+
+    B, H, K, S, hd = FLASH_DECODE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = _randn((B, H, hd), gen)
+    kc, vc = _randn((B, K, S, hd), gen), _randn((B, K, S, hd), gen)
+    pos = torch.tensor([ZOO_S - 1, S - 1], device="cuda")
+    mesh = Mesh(("cuda:0",) * 2, (("model", 2),))
+    got = sharded_decode_attention(q, kc, vc, pos, mesh)
+    want = reference_decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=FLASH_DECODE_TOL,
+                               atol=FLASH_DECODE_TOL)
+    out = {"shape": list(FLASH_DECODE_SHAPE), "mesh": repr(mesh),
+           "max_abs_err": max_abs_err(got, want),
+           "sharded_call_ms": time_ms(lambda: sharded_decode_attention(
+               q, kc, vc, pos, mesh), runs=10, hold=False),
+           "reference_call_ms": time_ms(lambda: reference_decode_attention(
+               q, kc, vc, pos), runs=10, hold=False),
+           "bound_ms": bound_ms(4.0 * (2 * q.numel() + kc.numel()
+                                       + vc.numel()),
+                                4.0 * B * H * S * hd, part)[0]}
+    log(json.dumps({"sharded_decode": out}))
+    return out
+
+
+def run_zoo(part: str) -> dict:
+    """The phase "serve, the rest of the zoo": ZOO_SERVES one after
+    another (each model freed before the next), then the sharded flash
+    decode."""
+    out = {}
+    for arch, n_layers, param_dtype in ZOO_SERVES:
+        torch.cuda.empty_cache()
+        out[arch] = run_zoo_serve(arch, n_layers, param_dtype)
+        log(f"{arch} serve done at {time.perf_counter() - T0:.1f} s")
+    out["sharded_decode"] = check_sharded_decode(part)
     return out
 
 
@@ -2436,12 +2898,11 @@ def run_musicgen_serve() -> dict:
     from repro_torch.core.flatten import tree_leaves
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.launch.serve import generate
-    from repro_torch.models import init_params, param_count, prefill
+    from repro_torch.models import init_params, param_count
 
     arch = "musicgen-medium"
     B, S, new = MUSICGEN_SERVE
     cfg = get_config(arch).replace(use_pallas_attention=True)
-    plain_cfg = cfg.replace(use_pallas_attention=False)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(t.numel() for t in tree_leaves(params))
     if n_params != param_count(cfg):
@@ -2472,46 +2933,13 @@ def run_musicgen_serve() -> dict:
            "params": n_params, "prefill_s": run.prefill_s,
            "decode_ms_per_step": 1e3 * run.decode_s / new,
            "max_abs_logit": float(logits.abs().max()), "launches": launches}
-    with _attention_in_plain_version():
-        twin, _ = prefill(cfg, params, batch)
-    with _attention_in_plain_version(p_in_bf16=True):
-        regrouped, _ = prefill(cfg, params, batch)
-    out["max_abs_logit_diff_vs_plain_version"] = _max_abs_diff(logits, twin)
-    out["plain_p_bf16_vs_plain_max_abs_diff"] = _max_abs_diff(regrouped,
-                                                              twin)
-    out["logit_diff_bound"] = (SERVE_REGROUP_FACTOR
-                               * out["plain_p_bf16_vs_plain_max_abs_diff"])
-    del twin, regrouped
-    report = {"calls": 0, "max_err": 0.0, "max_err_over_bound": 0.0}
-    with _flash_checked_per_call(report):
-        prefill(cfg, params, batch)
-    if report["calls"] != cfg.n_layers:
-        raise RuntimeError(f"{arch}: {report['calls']} flash_attention "
-                           f"calls checked, want {cfg.n_layers}")
-    out["per_call_check"] = report
-    plain_path, _ = prefill(plain_cfg, params, batch)
-    truth, _ = prefill(plain_cfg.replace(dtype="float32"), params, batch)
-    out["kernel_path_max_err_vs_fp32"] = _max_abs_diff(logits, truth)
-    out["plain_path_max_err_vs_fp32"] = _max_abs_diff(plain_path, truth)
-    del plain_path, logits
-    k32, _ = prefill(cfg.replace(dtype="float32"), params, batch)
-    out["fp32_max_abs_diff"] = _max_abs_diff(k32, truth)
-    del k32, truth, params
+    held = {"kernel": logits}
+    del run, logits
+    _serve_checks(cfg, params, batch, held, out, cfg.n_layers)
+    del params
     torch.cuda.empty_cache()
     log(json.dumps({"serve": out}))
-    if not out["max_abs_logit_diff_vs_plain_version"] <= out[
-            "logit_diff_bound"]:
-        raise RuntimeError(
-            f"{arch} serve: prefill logits differ from the kernel's plain "
-            f"version by {out['max_abs_logit_diff_vs_plain_version']:.4g} "
-            f"> {out['logit_diff_bound']:.4g}")
-    if not out["kernel_path_max_err_vs_fp32"] <= out[
-            "plain_path_max_err_vs_fp32"]:
-        raise RuntimeError(f"{arch} serve: the kernel path is further from "
-                           f"the fp32 model than the plain path")
-    if not out["fp32_max_abs_diff"] <= FP32_LOGIT_TOL:
-        raise RuntimeError(f"{arch} serve: fp32 kernel against plain path "
-                           f"{out['fp32_max_abs_diff']:.4g}")
+    _serve_gates(arch, out, vs_fp32=True)
     return out
 
 
@@ -2629,6 +3057,7 @@ def main() -> int:
     for spec in SSM_SERVES:
         ssm_serves.append(run_ssm_serve(*spec))
         log(f"{spec[0]} serve done at {time.perf_counter() - T0:.1f} s")
+    zoo = run_zoo(part)
     training = run_training(gen, part)
     log(f"train phase done at {time.perf_counter() - T0:.1f} s")
     # which run's launches each kernel's row reports
@@ -2655,12 +3084,17 @@ def main() -> int:
             "plain_backward_ms"]})
     rows[-2]["musicgen_launches"] = training["musicgen_serve"]["launches"][
         "flash_attention"]
+    for arch, _, _ in ZOO_SERVES:
+        rows[-2][f"{arch}_launches"] = zoo[arch]["launches"][
+            "flash_attention"]
     if int8["launches"]["int8_encode"] != int8["launches"]["int8_decode"]:
         raise RuntimeError(f"int8 launches differ: {int8['launches']}")
     if int8["launches"]["fed_agg"] < 1 or topk["launches"]["fed_agg"] < 1:
         raise RuntimeError("a compressed run never launched fed_agg")
     for row in rows:
-        for key in ("ms", "plain_ms", "bound_ms"):
+        for key in ("ms", "plain_ms", "bound_ms") + (
+                ("vlm_ms", "vlm_plain_ms", "vlm_bound_ms", "vlm_library_ms")
+                if row["name"] == "flash_attention" else ()):
             if not (isinstance(row[key], float) and math.isfinite(row[key])):
                 raise RuntimeError(f"{row['name']}: bad {key} {row[key]}")
     log(json.dumps({"kernels": rows}))

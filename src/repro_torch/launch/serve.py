@@ -15,12 +15,22 @@ the card.  The port of the JAX package's examples/serve_decode.py.
         --full-width --pallas-attention --prompt-len 4096 --new 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \
         --full-width --pallas-attention --prompt-len 1024 --new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch llama-3.2-vision-11b --pallas-attention
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-11b --full-width --pallas-attention \
+        --prompt-len 2048 --new 32
 
 Weights are random, made from seed 0 (the prompt from seed 1).  Without
 ``--full-width`` the config is its ``.reduced()`` smoke variant, as in the
 reference example.  Mamba blocks run their prefill scan in the
 hand-written ``ssd_scan`` kernel.  A codebook model (musicgen-medium)
-takes (batch, n_codebooks, prompt-len) prompts.
+takes (batch, n_codebooks, prompt-len) prompts.  A VLM config
+(llama-3.2-vision-11b, ``n_patches`` > 0) gets image embeddings
+(batch, n_patches, d_model) of normal × 0.1 from seed 2, as the reference
+example makes them.  The MoE configs (arctic-480b,
+llama4-maverick-400b-a17b) serve reduced; at full width and depth their
+params do not fit on one card, and the CLI does not hide that.
 ``--pallas-attention`` sets the config's ``use_pallas_attention``: prefill
 attention (zamba2's shared block included) then runs in the hand-written
 ``flash_attention`` kernel.  ``--device`` defaults to ``cuda``.
@@ -55,9 +65,11 @@ def _sync(device: torch.device) -> None:
 def generate(cfg: ArchConfig, params, prompt: torch.Tensor, new: int,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             cache_dtype=torch.float32) -> Generation:
-    """Prefill ``prompt`` (B, S), or (B, n_cb, S) codebook tokens, into a
-    cache of S + new positions, then decode ``new`` tokens, greedily or by
+             cache_dtype=torch.float32,
+             image_embeds: Optional[torch.Tensor] = None) -> Generation:
+    """Prefill ``prompt`` (B, S), or (B, n_cb, S) codebook tokens, with the
+    VLM's ``image_embeds`` (B, n_patches, D) if given, into a cache of
+    S + new positions, then decode ``new`` tokens, greedily or by
     sampling at ``temperature`` (with ``generator``).  As in the reference
     example, the first decode step feeds the prompt's last token again,
     at position S, and a codebook model picks from its first codebook's
@@ -65,9 +77,12 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, new: int,
     up to a synchronise of the prompt's device."""
     B, S = prompt.shape[0], prompt.shape[-1]
     device = prompt.device
+    batch = {"tokens": prompt}
+    if image_embeds is not None:
+        batch["image_embeds"] = image_embeds
     t0 = time.perf_counter()
-    logits, cache = prefill(cfg, params, {"tokens": prompt},
-                            cache_len=S + new, cache_dtype=cache_dtype)
+    logits, cache = prefill(cfg, params, batch, cache_len=S + new,
+                            cache_dtype=cache_dtype)
     _sync(device)
     prefill_s = time.perf_counter() - t0
 
@@ -117,7 +132,13 @@ def main() -> None:
              if cfg.n_codebooks else (args.batch, args.prompt_len))
     prompt = torch.randint(0, cfg.vocab, shape, generator=gen,
                            device=device)
-    out = generate(cfg, params, prompt, args.new, args.temperature, gen)
+    image_embeds = None
+    if cfg.n_patches:
+        image_embeds = torch.randn(
+            (args.batch, cfg.n_patches, cfg.d_model), device=device,
+            generator=torch.Generator(device=device).manual_seed(2)) * 0.1
+    out = generate(cfg, params, prompt, args.new, args.temperature, gen,
+                   image_embeds=image_embeds)
     n_new = args.new * args.batch
     print(json.dumps({
         "arch": cfg.name, "full_width": args.full_width,

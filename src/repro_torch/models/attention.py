@@ -1,6 +1,6 @@
-"""GQA attention: full/sliding-window causal (prefill), and single-token
-decode against a KV cache.  The port of the JAX package's
-models/attention.py; cross attention (VLM) waits for ROADMAP Queue 1.9.
+"""GQA attention: full/sliding-window causal (prefill), cross attention
+(VLM), and single-token decode against a KV cache.  The port of the JAX
+package's models/attention.py.
 
 Layouts (head dims kept explicit, as in the reference):
   wq: (D, H, hd)   wk/wv: (D, K, hd)   wo: (H, hd, D)
@@ -148,6 +148,41 @@ def kv_to_cache(k: torch.Tensor, v: torch.Tensor, window: Optional[int],
         kt = torch.nn.functional.pad(kt, (0, 0, 0, pad))
         vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
     return (kt.to(dtype).contiguous(), vt.to(dtype).contiguous())
+
+
+# --------------------------------------------------------------- cross
+def _cross(p: Pytree, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg: ArchConfig) -> torch.Tensor:
+    """Text queries of x (B, S, D) over the vision keys and values
+    (B, P, K, hd), unmasked, the softmax in fp32."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    scores = _gqa_scores(q, k, cfg.n_kv_heads)
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    o = _gqa_out(probs, v)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+
+
+def cross_attention(p: Pytree, x: torch.Tensor, kv_feats: torch.Tensor,
+                    cfg: ArchConfig) -> torch.Tensor:
+    """Text queries attend over (unmasked) vision features (B, P, D)."""
+    k = torch.einsum("bpd,dhk->bphk", kv_feats, p["wk"].to(x.dtype))
+    v = torch.einsum("bpd,dhk->bphk", kv_feats, p["wv"].to(x.dtype))
+    return _cross(p, x, k, v, cfg)
+
+
+def init_cross_cache(p: Pytree, kv_feats: torch.Tensor,
+                     dtype=torch.bfloat16) -> Pytree:
+    """Precompute cross-attention K/V (B, P, K, hd) from vision features
+    once."""
+    k = torch.einsum("bpd,dhk->bphk", kv_feats, p["wk"].to(kv_feats.dtype))
+    v = torch.einsum("bpd,dhk->bphk", kv_feats, p["wv"].to(kv_feats.dtype))
+    return {"ck": k.to(dtype), "cv": v.to(dtype)}
+
+
+def decode_cross_attention(p: Pytree, x: torch.Tensor, cross_cache: Pytree,
+                           cfg: ArchConfig) -> torch.Tensor:
+    return _cross(p, x, cross_cache["ck"].to(x.dtype),
+                  cross_cache["cv"].to(x.dtype), cfg)
 
 
 # --------------------------------------------------------------- decode

@@ -1,8 +1,11 @@
 """Decoder backbone: the port of the JAX package's models/transformer.py
-for the block kinds ``attn``, ``local``, ``mamba`` (Mamba2, models/ssm.py)
-and ``shared_attn`` (Zamba2's weight-tied full-attention block), with
-audio codebooks (musicgen: summed per-codebook embeddings of (B, n_cb, S)
-tokens, per-codebook logits (B, S, n_cb·V)).
+for every block kind: ``attn``, ``local``, ``mamba`` (Mamba2,
+models/ssm.py), ``shared_attn`` (Zamba2's weight-tied full-attention
+block) and ``cross`` (self attention, then tanh-gated cross attention over
+the batch's ``image_embeds`` (B, n_patches, D)); mixtures of experts
+(models/moe.py) in place of the MLP where ``cfg.use_moe``; audio codebooks
+(musicgen: summed per-codebook embeddings of (B, n_cb, S) tokens,
+per-codebook logits (B, S, n_cb·V)).
 
 Params keep the reference's tree: the layer stack is ``n_super``
 superblocks (one repetition of cfg.pattern) whose params are stacked on a
@@ -12,9 +15,10 @@ remainder of ``n_layers % period`` leading pattern positions under
 and all read ``params["shared_attn"]``.  ``lax.scan`` over the stack
 becomes a Python loop; with ``cfg.remat`` each superblock of ``forward``
 runs under ``torch.utils.checkpoint`` when autograd records it (the
-reference's ``jax.checkpoint``).  Block kind ``cross`` and mixtures of
-experts are not ported yet (ROADMAP Queue 1.9): every entry point raises
-``NotImplementedError`` for such a config.
+reference's ``jax.checkpoint``).  As in the reference, a ``cross`` block
+skips its cross attention when the batch holds no ``image_embeds``, and
+its prefill then leaves the cache without the ``ck``/``cv`` that decode
+reads.
 
 Entry points:
   init_params(cfg, gen)                        → params
@@ -22,6 +26,7 @@ Entry points:
   prefill(cfg, params, batch)                  → (logits, cache)  (prefill)
   decode_step(cfg, params, cache, tokens, pos) → (logits, cache)  (decode)
   init_cache(cfg, batch_size, context_len)     → cache tree
+  warm_cross_caches(cfg, params, cache, feats) → cache with cross K/V
   loss_fn(cfg, params, batch)                  → mean token CE  (train)
   make_train_step(cfg)                         → (train_step, init_state)
 
@@ -40,29 +45,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.flatten import tree_leaves, tree_map
 from ..optim import apply_updates, make_optimizer
-from .attention import (attn_init, decode_self_attention, init_kv_cache,
-                        kv_to_cache, self_attention)
+from .attention import (attn_init, cross_attention, decode_cross_attention,
+                        decode_self_attention, init_cross_cache,
+                        init_kv_cache, kv_to_cache, self_attention)
 from .config import ArchConfig
 from .layers import (cross_entropy_loss, dtype_of, embed_init, gated_mlp,
                      gated_mlp_init, he_init, rms_norm, softcap)
+from .moe import moe_block, moe_init
 from .ssm import init_mamba_cache, mamba_block, mamba_decode_step, mamba_init
 
 Pytree = Any
-
-PORTED_KINDS = ("attn", "local", "mamba", "shared_attn")
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    """Raise for a config that needs a block kind or feature the port does
-    not have yet."""
-    missing = sorted(set(cfg.pattern) - set(PORTED_KINDS))
-    if cfg.n_experts > 0:
-        missing.append("moe")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to the PyTorch "
-            f"package yet (ROADMAP Queue 1.9); ported block kinds: "
-            f"{', '.join(PORTED_KINDS)}")
 
 
 def _layer_positions(cfg: ArchConfig):
@@ -78,23 +70,40 @@ def _unstack(tree: Pytree, n: int) -> list:
     return [tree_map(lambda p: p[s], parts) for s in range(n)]
 
 
+def _stack(trees: list) -> Pytree:
+    """Trees of equal shape stacked on a new leading axis; one tree is
+    viewed with an axis of 1 (an expert stack is 32 GB at full width)."""
+    if len(trees) == 1:
+        return tree_map(lambda t: t[None], trees[0])
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
 # ============================================================ param init
 def _block_init(gen: torch.Generator, kind: str, cfg: ArchConfig,
-                dtype) -> Pytree:
+                dtype, use_moe: bool = False) -> Pytree:
     D = cfg.d_model
+
+    def zeros():
+        return torch.zeros((D,), dtype=dtype, device=gen.device)
+
     if kind == "mamba":
-        return {"ln1": torch.zeros((D,), dtype=dtype, device=gen.device),
-                "mamba": mamba_init(gen, cfg, dtype)}
-    return {"ln1": torch.zeros((D,), dtype=dtype, device=gen.device),
-            "attn": attn_init(gen, cfg, dtype),
-            "ln2": torch.zeros((D,), dtype=dtype, device=gen.device),
-            "mlp": gated_mlp_init(gen, D, cfg.d_ff, dtype)}
+        return {"ln1": zeros(), "mamba": mamba_init(gen, cfg, dtype)}
+    p = {"ln1": zeros(), "attn": attn_init(gen, cfg, dtype), "ln2": zeros()}
+    if use_moe and kind in ("attn", "local", "cross"):
+        p["moe"] = moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = gated_mlp_init(gen, D, cfg.d_ff, dtype)
+    if kind == "cross":
+        p["lnx"] = zeros()
+        p["xattn"] = attn_init(gen, cfg, dtype)
+        p["xgate"] = torch.zeros((1,), dtype=torch.float32,
+                                 device=gen.device)
+    return p
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
     """Random params from ``gen``, on ``gen``'s device, in
     ``cfg.param_dtype``, with the reference's keys and shapes."""
-    _check_ported(cfg)
     dtype = dtype_of(cfg.param_dtype)
     D, V = cfg.d_model, cfg.vocab
     embed_shape = (cfg.n_codebooks, V, D) if cfg.n_codebooks else (V, D)
@@ -103,14 +112,13 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
     for i, kind in enumerate(cfg.pattern):
         if kind == "shared_attn":
             continue
-        stack = [_block_init(gen, kind, cfg, dtype)
-                 for _ in range(cfg.n_super)]
-        blocks[f"pos{i}"] = tree_map(lambda *xs: torch.stack(xs), *stack)
+        blocks[f"pos{i}"] = _stack([_block_init(gen, kind, cfg, dtype,
+                                                cfg.use_moe(i))
+                                    for _ in range(cfg.n_super)])
     params["blocks"] = blocks
-    positions = _layer_positions(cfg)
-    rem = {f"pos{positions[j]}": _block_init(gen, cfg.pattern[positions[j]],
-                                             cfg, dtype)
-           for j in range(cfg.n_rem)}
+    rem = {f"pos{i}": _block_init(gen, cfg.pattern[i], cfg, dtype,
+                                  cfg.use_moe(i))
+           for i in _layer_positions(cfg)[:cfg.n_rem]}
     if rem:
         params["rem"] = rem
     if "shared_attn" in cfg.pattern:
@@ -138,24 +146,45 @@ def _at(cfg: ArchConfig, i: int, params_i: Pytree,
     return cfg.pattern[i], params_i[f"pos{i}"], None
 
 
+def _gated_cross(p: Pytree, x: torch.Tensor, cfg: ArchConfig,
+                 attend) -> torch.Tensor:
+    """x plus tanh(xgate) times ``attend`` of x's lnx-normed states."""
+    gate = torch.tanh(p["xgate"]).to(x.dtype)
+    return x + gate * attend(rms_norm(x, p["lnx"], cfg.norm_eps))
+
+
+def _ffn(p: Pytree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The block's second half: x plus its MoE or MLP of the ln2-normed
+    states."""
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        return x + moe_block(p["moe"], h2, cfg)
+    return x + gated_mlp(p["mlp"], h2, cfg.act)
+
+
 def _apply_block(kind: str, p: Pytree, x: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor,
-                 window_override: Optional[int] = None) -> torch.Tensor:
+                 window_override: Optional[int] = None,
+                 image_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     if kind == "mamba":
         return x + mamba_block(p["mamba"],
                                rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     x = x + self_attention(p["attn"], h, positions, cfg,
                            _window(kind, cfg, window_override))
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + gated_mlp(p["mlp"], h2, cfg.act)
+    if kind == "cross" and image_embeds is not None:
+        x = _gated_cross(p, x, cfg, lambda hx: cross_attention(
+            p["xattn"], hx, image_embeds, cfg))
+    return _ffn(p, x, cfg)
 
 
 def _superblock(params_i: Pytree, shared: Optional[Pytree], x: torch.Tensor,
-                cfg: ArchConfig, positions: torch.Tensor) -> torch.Tensor:
+                cfg: ArchConfig, positions: torch.Tensor,
+                image_embeds: Optional[torch.Tensor]) -> torch.Tensor:
     for i in range(len(cfg.pattern)):
         kind, p, window = _at(cfg, i, params_i, shared)
-        x = _apply_block(kind, p, x, cfg, positions, window)
+        x = _apply_block(kind, p, x, cfg, positions, window, image_embeds)
     return x
 
 
@@ -187,30 +216,37 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=tokens.device)[None, :].expand(B, S)
 
 
+def _image_embeds(cfg: ArchConfig,
+                  batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+    """The batch's vision features (B, n_patches, D) in cfg.dtype, if any."""
+    feats = batch.get("image_embeds")
+    return None if feats is None else feats.to(dtype_of(cfg.dtype))
+
+
 # ============================================================ forward
 def forward(cfg: ArchConfig, params: Pytree,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence forward → logits (B, S, V), or (B, S, n_cb·V) for
     codebook tokens (B, n_cb, S).  With ``cfg.remat`` and autograd on,
     each superblock keeps only its input and recomputes the rest in the
-    backward pass."""
-    _check_ported(cfg)
+    backward pass.  ``batch["image_embeds"]`` (B, n_patches, D), if given,
+    feeds the ``cross`` blocks."""
     tokens = batch["tokens"]
     positions = _positions(tokens)
+    image_embeds = _image_embeds(cfg, batch)
     x = _embed(cfg, params, tokens, dtype_of(cfg.dtype))
     shared = params.get("shared_attn")
     remat = cfg.remat and torch.is_grad_enabled()
     for params_i in _unstack(params["blocks"], cfg.n_super):
         if remat:
             x = checkpoint(_superblock, params_i, shared, x, cfg, positions,
-                           use_reentrant=False)
+                           image_embeds, use_reentrant=False)
         else:
-            x = _superblock(params_i, shared, x, cfg, positions)
-    positions_rem = _layer_positions(cfg)
-    for j in range(cfg.n_rem):
-        i = positions_rem[j]
+            x = _superblock(params_i, shared, x, cfg, positions,
+                            image_embeds)
+    for i in _layer_positions(cfg)[:cfg.n_rem]:
         x = _apply_block(cfg.pattern[i], params["rem"][f"pos{i}"], x, cfg,
-                         positions)
+                         positions, None, image_embeds)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(cfg, params, x)
 
@@ -279,13 +315,17 @@ def _block_cache(kind: str, cfg: ArchConfig, batch: int, context: int,
         length = min(cfg.shared_attn_window, context)
     else:
         length = context
-    return init_kv_cache(cfg, batch, length, dtype, device)
+    c = init_kv_cache(cfg, batch, length, dtype, device)
+    if kind == "cross":
+        shape = (batch, cfg.n_patches, cfg.n_kv_heads, cfg.hd)
+        c["ck"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cv"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
 
 
 def init_cache(cfg: ArchConfig, batch: int, context: int,
                dtype=torch.bfloat16, device=None) -> Pytree:
     """Zero-initialised cache tree matching decode_step's expectations."""
-    _check_ported(cfg)
     cache: Dict[str, Any] = {"blocks": {}}
     for i, kind in enumerate(cfg.pattern):
         blk = _block_cache(kind, cfg, batch, context, dtype, device)
@@ -301,10 +341,28 @@ def init_cache(cfg: ArchConfig, batch: int, context: int,
     return cache
 
 
+def warm_cross_caches(cfg: ArchConfig, params: Pytree, cache: Pytree,
+                      image_embeds: torch.Tensor) -> Pytree:
+    """Populate cross-attn K/V from vision features (before decoding): a
+    new cache tree whose stacked ``cross`` blocks hold ``init_cross_cache``
+    of each superblock's ``xattn`` params; other leaves are shared."""
+    dtype = dtype_of(cfg.dtype)
+    feats = image_embeds.to(dtype)
+    blocks = dict(cache["blocks"])
+    for i, kind in enumerate(cfg.pattern):
+        if kind != "cross":
+            continue
+        per_super = [init_cross_cache(pw, feats, dtype) for pw in _unstack(
+            params["blocks"][f"pos{i}"]["xattn"], cfg.n_super)]
+        blocks[f"pos{i}"] = dict(blocks[f"pos{i}"], **_stack(per_super))
+    return dict(cache, blocks=blocks)
+
+
 # ============================================================ prefill
 def _prefill_block(kind: str, p: Pytree, x: torch.Tensor, cfg: ArchConfig,
                    positions: torch.Tensor, cache_dtype, cache_len: int,
-                   window_override: Optional[int] = None
+                   window_override: Optional[int] = None,
+                   image_embeds: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Pytree]:
     if kind == "mamba":
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -320,9 +378,12 @@ def _prefill_block(kind: str, p: Pytree, x: torch.Tensor, cfg: ArchConfig,
         pad = (0, 0, 0, cache_len - kc.shape[2])
         kc = torch.nn.functional.pad(kc, pad)
         vc = torch.nn.functional.pad(vc, pad)
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + gated_mlp(p["mlp"], h2, cfg.act)
-    return x, {"k": kc, "v": vc}
+    c = {"k": kc, "v": vc}
+    if kind == "cross" and image_embeds is not None:
+        x = _gated_cross(p, x, cfg, lambda hx: cross_attention(
+            p["xattn"], hx, image_embeds, cfg))
+        c.update(init_cross_cache(p["xattn"], image_embeds, cache_dtype))
+    return _ffn(p, x, cfg), c
 
 
 def prefill(cfg: ArchConfig, params: Pytree, batch: Dict[str, torch.Tensor],
@@ -330,12 +391,13 @@ def prefill(cfg: ArchConfig, params: Pytree, batch: Dict[str, torch.Tensor],
             cache_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Pytree]:
     """Inference prefill: full-sequence forward that also emits the decode
     cache (KV per attention block in ring/linear layout, fp32 conv windows
-    and SSM states for Mamba blocks)."""
-    _check_ported(cfg)
+    and SSM states for Mamba blocks, cross-attn K/V for VLM blocks from
+    ``batch["image_embeds"]``)."""
     tokens = batch["tokens"]
     S = tokens.shape[-1]
     cache_len = cache_len or S
     positions = _positions(tokens)
+    image_embeds = _image_embeds(cfg, batch)
     x = _embed(cfg, params, tokens, dtype_of(cfg.dtype))
     shared = params.get("shared_attn")
 
@@ -345,18 +407,17 @@ def prefill(cfg: ArchConfig, params: Pytree, batch: Dict[str, torch.Tensor],
         for i in range(len(cfg.pattern)):
             kind, p, window = _at(cfg, i, params_i, shared)
             x, new_cache[f"pos{i}"] = _prefill_block(
-                kind, p, x, cfg, positions, cache_dtype, cache_len, window)
+                kind, p, x, cfg, positions, cache_dtype, cache_len, window,
+                image_embeds)
         per_super.append(new_cache)
     cache: Dict[str, Any] = {}
     if per_super:
-        cache["blocks"] = tree_map(lambda *xs: torch.stack(xs), *per_super)
-    positions_rem = _layer_positions(cfg)
+        cache["blocks"] = _stack(per_super)
     rem = {}
-    for j in range(cfg.n_rem):
-        i = positions_rem[j]
+    for i in _layer_positions(cfg)[:cfg.n_rem]:
         x, rem[f"pos{i}"] = _prefill_block(
             cfg.pattern[i], params["rem"][f"pos{i}"], x, cfg, positions,
-            cache_dtype, cache_len)
+            cache_dtype, cache_len, None, image_embeds)
     if rem:
         cache["rem"] = rem
 
@@ -377,8 +438,10 @@ def _decode_block(kind: str, p: Pytree, x: torch.Tensor, blk_cache: Pytree,
     y, kv = decode_self_attention(p["attn"], h, blk_cache, pos, cfg,
                                   _window(kind, cfg, window_override))
     x = x + y
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + gated_mlp(p["mlp"], h2, cfg.act), kv
+    if kind == "cross":
+        x = _gated_cross(p, x, cfg, lambda hx: decode_cross_attention(
+            p["xattn"], hx, blk_cache, cfg))
+    return _ffn(p, x, cfg), kv
 
 
 def decode_step(cfg: ArchConfig, params: Pytree, cache: Pytree,
@@ -386,8 +449,8 @@ def decode_step(cfg: ArchConfig, params: Pytree, cache: Pytree,
                 ) -> Tuple[torch.Tensor, Pytree]:
     """One decode step. tokens: (B, 1) (codebooks: (B, n_cb, 1)); pos:
     (B,).  The cache's tensors are updated in place; the same tree is
-    returned."""
-    _check_ported(cfg)
+    returned.  A ``cross`` block reads its K/V from the cache's ``ck``/``cv``
+    (prefill with ``image_embeds``, or ``warm_cross_caches``)."""
     x = _embed(cfg, params, tokens, dtype_of(cfg.dtype))
     shared = params.get("shared_attn")
     # views into the stacks: the cache is written in place
@@ -397,9 +460,7 @@ def decode_step(cfg: ArchConfig, params: Pytree, cache: Pytree,
             kind, p, window = _at(cfg, i, params_i, shared)
             x, _ = _decode_block(kind, p, x, cache_i[f"pos{i}"], pos, cfg,
                                  window)
-    positions_rem = _layer_positions(cfg)
-    for j in range(cfg.n_rem):
-        i = positions_rem[j]
+    for i in _layer_positions(cfg)[:cfg.n_rem]:
         x, _ = _decode_block(cfg.pattern[i], params["rem"][f"pos{i}"], x,
                              cache["rem"][f"pos{i}"], pos, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -251,10 +251,3 @@ def test_adamw_and_clip_match_reference():
 def test_musicgen_serving_matches_reference(pallas):
     check_serving_path("musicgen-medium", pallas, S=24)
 
-
-def test_moe_and_cross_still_raise():
-    gen = torch.Generator().manual_seed(0)
-    init_params(get_config("musicgen-medium").reduced(), gen)
-    for arch in ("arctic-480b", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="1.9"):
-            init_params(get_config(arch).reduced(), gen)

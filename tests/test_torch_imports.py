@@ -27,7 +27,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.sharding.rules, repro_torch.faas.fleet, "
             "repro_torch.faas.profiles, repro_torch.checkpoint.checkpoint, "
             "repro_torch.fl.checkpointing, repro_torch.launch.pretrain, "
-            "repro_torch.optim.optimizers, repro_torch.kernels.ssd_scan\n"
+            "repro_torch.optim.optimizers, repro_torch.kernels.ssd_scan, "
+            "repro_torch.models.moe, repro_torch.sharding.flash_decode\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]\n"
@@ -54,7 +55,8 @@ def test_no_source_imports_jax_or_repro():
     for module in ("fl/executor.py", "core/device_batch.py",
                    "launch/mesh.py", "sharding/rules.py", "faas/fleet.py",
                    "faas/profiles.py", "checkpoint/checkpoint.py",
-                   "fl/checkpointing.py", "launch/pretrain.py"):
+                   "fl/checkpointing.py", "launch/pretrain.py",
+                   "models/moe.py", "sharding/flash_decode.py"):
         assert PORT / module in files, module
     for path in files:
         for name in _imported_modules(path):

@@ -35,9 +35,10 @@ from torch_parity_common import (LAYER_TOL, LOGIT_TOL, check_serving_path,
                                  np_tree as _np_tree,
                                  tree_close as _tree_close)
 
-# musicgen-medium's codebooks are ported (tests/test_torch_autograd.py)
-UNPORTED = ("arctic-480b", "llama-3.2-vision-11b",
-            "llama4-maverick-400b-a17b")
+# the configs with MoE or cross blocks (tests/test_torch_moe.py,
+# tests/test_torch_vlm.py)
+MOE_AND_CROSS = ("arctic-480b", "llama-3.2-vision-11b",
+                 "llama4-maverick-400b-a17b")
 
 
 # ------------------------------------------------------------- configs
@@ -52,13 +53,23 @@ def test_architectures_and_configs_match():
     assert param_count(get_config("gemma2-2b")) == 2_614_222_080
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_block_kinds_raise(arch):
+@pytest.mark.parametrize("arch", MOE_AND_CROSS)
+def test_moe_and_cross_init_matches_reference(arch):
+    """init_params of the reduced MoE and VLM configs: the reference's
+    keys, shapes and dtypes (the MoE router and the cross gate in fp32),
+    and the param count (the analytic one plus one ``xgate`` a cross
+    block, which it leaves out)."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1.9"):
-        init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="Queue 1.9"):
-        forward(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.long)})
+    mine = init_params(cfg, torch.Generator().manual_seed(0))
+    ref = jax_init_params(jax_get_config(arch).reduced(),
+                          jax.random.PRNGKey(0))
+    spec = jax.tree_util.tree_map(lambda a: (a.shape, str(a.dtype)),
+                                  _np_tree(ref))
+    assert jax.tree_util.tree_map(
+        lambda a: (a.shape, str(a.dtype)), params_to_numpy(mine)) == spec
+    n_cross = cfg.n_super * cfg.pattern.count("cross")
+    assert (sum(t.numel() for t in jax.tree_util.tree_leaves(mine))
+            == param_count(cfg) + n_cross)
 
 
 def test_init_params_tree_matches_reference():
@@ -139,14 +150,17 @@ def test_self_attention_branches_match(branch):
 
 # ------------------------------------------------------------- the model
 @pytest.mark.parametrize("pallas", [False, True], ids=["plain", "kernel"])
-@pytest.mark.parametrize("arch", ["gemma2-2b", "chatglm3-6b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "chatglm3-6b", "gemma3-1b",
+                                  "internlm2-20b"])
 def test_serving_path_matches(arch, pallas):
     """forward, prefill (logits and every cache leaf), 4 decode steps
-    (logits and caches) and generate's 8 greedy tokens.  gemma2-2b's
-    prompt of 80 exceeds its reduced window of 64, so the local layers'
-    ring buffer wraps; chatglm3-6b has GQA group 2, half-dim RoPE and an
-    untied head."""
-    check_serving_path(arch, pallas, 80 if arch == "gemma2-2b" else 40)
+    (logits and caches) and generate's 8 greedy tokens.  gemma2-2b's and
+    gemma3-1b's prompts of 80 exceed their reduced window of 64, so the
+    local layers' ring buffers wrap (gemma3-1b: 11 local and 2 global
+    blocks in one superblock); chatglm3-6b has GQA group 2, half-dim RoPE
+    and an untied head; internlm2-20b GQA and RoPE theta 1e6."""
+    check_serving_path(arch, pallas,
+                       80 if arch in ("gemma2-2b", "gemma3-1b") else 40)
 
 
 def test_remainder_layers_and_init_cache():

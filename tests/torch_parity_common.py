@@ -6,6 +6,10 @@ the JAX package's on a reduced config.
 Params come from the JAX package's ``init_params`` and are carried into
 the port with ``convert.params_from_numpy``; inputs are made with numpy
 from a seed and handed to both.  The reduced configs compute in fp32.
+A VLM config also gets image embeddings (normal × 0.1, as the reference
+example makes them), and its cross blocks' ``xgate`` is set to XGATE in
+the params' numpy tree before either package sees it: init makes it 0,
+and tanh(0) = 0 would hide the whole cross path.
 """
 import jax
 import jax.numpy as jnp
@@ -34,6 +38,35 @@ LOGIT_TOL = 1e-4
 # the CPU)
 LOSS_RTOL = 1e-5
 GRAD_REL_L2 = 1e-4
+XGATE = 0.7                  # the cross blocks' gate: tanh(0.7) ≈ 0.6
+
+
+def zoo_params(jcfg, seed=0):
+    """The JAX package's init_params of ``jcfg`` as a numpy tree, with
+    every cross block's ``xgate`` set to XGATE."""
+    tree = np_tree(jax_init_params(jcfg, jax.random.PRNGKey(seed)))
+
+    def gate(t):
+        if isinstance(t, dict):
+            return {k: (np.full_like(v, XGATE) if k == "xgate" else gate(v))
+                    for k, v in t.items()}
+        return t
+    return gate(tree)
+
+
+def image_embeds(cfg, B=2, seed=2):
+    """(B, n_patches, d_model) fp32 vision features, normal × 0.1 from
+    ``seed``, or None for a config without patches."""
+    if not cfg.n_patches:
+        return None
+    return (np.random.default_rng(seed).normal(
+        size=(B, cfg.n_patches, cfg.d_model)) * 0.1).astype(np.float32)
+
+
+def with_images(batch, feats, to):
+    """``batch`` plus ``image_embeds`` of ``feats`` (made by ``to``), when
+    there are any."""
+    return batch if feats is None else dict(batch, image_embeds=to(feats))
 
 
 def np_tree(tree):
@@ -65,14 +98,16 @@ def tree_close(got, want, tol):
             np.shape, got_np))))
 
 
-def jax_generate(cfg, params, prompt, new):
+def jax_generate(cfg, params, prompt, new, feats=None):
     """examples/serve_decode.py's greedy loop: the prefill logits and
     cache, every decode step's (tokens, pos, logits, cache), and the
     generated ids (B, new).  A codebook model's prompt is (B, n_cb, S); it
-    picks from the first codebook's logits and feeds every codebook."""
+    picks from the first codebook's logits and feeds every codebook.  A
+    VLM's prefill takes the image embeddings ``feats``."""
     S = prompt.shape[-1]
-    logits, cache = jax_prefill(cfg, params, {"tokens": prompt},
-                                cache_len=S + new, cache_dtype=jnp.float32)
+    logits, cache = jax_prefill(
+        cfg, params, with_images({"tokens": prompt}, feats, jnp.asarray),
+        cache_len=S + new, cache_dtype=jnp.float32)
     step = jax.jit(lambda p, c, t, pos: jax_decode_step(cfg, p, c, t, pos))
     steps, ids = [], []
     tok = prompt[..., -1:]
@@ -94,27 +129,36 @@ def check_serving_path(arch: str, pallas: bool, S: int, new: int = 8,
     """forward, prefill (logits and every cache leaf), 4 decode steps
     (logits and caches) and generate's ``new`` greedy tokens of reduced
     ``arch`` (its ``.long_context()`` variant if asked) on a (2, S)
-    prompt ((2, n_cb, S) for codebooks), against the JAX package within
-    LOGIT_TOL; no kernel launches on the CPU."""
+    prompt ((2, n_cb, S) for codebooks; a VLM's with image embeddings and
+    its gates at XGATE), against the JAX package within LOGIT_TOL; no
+    kernel launches on the CPU."""
     jcfg = jax_get_config(arch).reduced().replace(
         use_pallas_attention=pallas)
     cfg = get_config(arch).reduced().replace(use_pallas_attention=pallas)
     if long_context:
         jcfg, cfg = jcfg.long_context(), cfg.long_context()
-    ref_params = jax_init_params(jcfg, jax.random.PRNGKey(0))
-    params = port(ref_params)
+    tree = zoo_params(jcfg)
+    ref_params = jax.tree_util.tree_map(jnp.asarray, tree)
+    params = port(tree)
     shape = (2, cfg.n_codebooks, S) if cfg.n_codebooks else (2, S)
     prompt = np.random.default_rng(1).integers(0, cfg.vocab, shape)
     jprompt = jnp.asarray(prompt, jnp.int32)
     tprompt = torch.from_numpy(prompt)
+    feats = image_embeds(cfg)
+    tfeats = None if feats is None else torch.from_numpy(feats)
 
-    close(forward(cfg, params, {"tokens": tprompt}),
-          jax_forward(jcfg, ref_params, {"tokens": jprompt}), LOGIT_TOL)
+    close(forward(cfg, params,
+                  with_images({"tokens": tprompt}, feats, torch.from_numpy)),
+          jax_forward(jcfg, ref_params,
+                      with_images({"tokens": jprompt}, feats, jnp.asarray)),
+          LOGIT_TOL)
 
     want_logits, want_cache, steps, want_ids = jax_generate(
-        jcfg, ref_params, jprompt, new)
-    logits, cache = prefill(cfg, params, {"tokens": tprompt},
-                            cache_len=S + new, cache_dtype=torch.float32)
+        jcfg, ref_params, jprompt, new, feats)
+    logits, cache = prefill(
+        cfg, params, with_images({"tokens": tprompt}, feats,
+                                 torch.from_numpy),
+        cache_len=S + new, cache_dtype=torch.float32)
     close(logits, want_logits, LOGIT_TOL)
     # the reference's cache tree, stacked blocks and all, carries over
     carried = params_from_numpy(np_tree(want_cache), device="cpu")
@@ -128,7 +172,7 @@ def check_serving_path(arch: str, pallas: bool, S: int, new: int = 8,
         tree_close(cache, want_step_cache, LOGIT_TOL)
 
     reset_launches()
-    out = generate(cfg, params, tprompt, new)
+    out = generate(cfg, params, tprompt, new, image_embeds=tfeats)
     np.testing.assert_array_equal(out.tokens.numpy(), want_ids)
     close(out.prefill_logits, want_logits, LOGIT_TOL)
     assert all(k.launches == 0 for k in KERNELS)   # no kernel on the CPU
@@ -149,10 +193,22 @@ def rel_l2(got, want) -> float:
                  / max(np.linalg.norm(want), 1e-30))
 
 
-def assert_trees_rel_l2(got, want, tol):
+# a leaf whose gradient is zero analytically (the router of a top-1 MoE:
+# its combine weight p / p is 1 whatever p is) holds only rounding, so
+# relative L2 means nothing there: both trees' leaf must instead be below
+# ZERO_GRAD of the reference's largest leaf
+ZERO_GRAD = 1e-6
+
+
+def assert_trees_rel_l2(got, want, tol, zero_leaves=()):
     """Every leaf of the port's tree within ``tol`` relative L2 of the
-    reference tree's leaf at the same path, and the same set of leaves."""
+    reference tree's leaf at the same path, and the same set of leaves.
+    The paths in ``zero_leaves`` are instead shown zero in both trees:
+    below ZERO_GRAD of the reference's largest leaf."""
     want = np_tree(want)
+    floor = ZERO_GRAD * max(np.linalg.norm(np.asarray(w, np.float64))
+                            for w in jax.tree_util.tree_leaves(want))
+    zero_leaves = set(zero_leaves)
     n = 0
     for path, leaf in tree_paths(got):
         w = want
@@ -160,29 +216,44 @@ def assert_trees_rel_l2(got, want, tol):
             w = w[key]
         g = leaf.detach().float().numpy()
         assert g.shape == np.shape(w), path
-        assert rel_l2(g, w) <= tol, (path, rel_l2(g, w))
+        if path in zero_leaves:
+            zero_leaves.remove(path)
+            norms = (np.linalg.norm(np.asarray(w, np.float64)),
+                     np.linalg.norm(g.astype(np.float64)))
+            assert max(norms) < floor, (path, norms, floor)
+        else:
+            assert rel_l2(g, w) <= tol, (path, rel_l2(g, w))
         n += 1
+    assert not zero_leaves, zero_leaves
     assert n == len(jax.tree_util.tree_leaves(want))
 
 
 def check_loss_and_grads(arch, efficient_ce):
     """Reduced ``arch``'s loss and every leaf's gradient, the port's
     ``grads_of`` against ``jax.value_and_grad`` of the reference's
-    ``loss_fn`` on the same params and batch, within LOSS_RTOL and
-    GRAD_REL_L2."""
+    ``loss_fn`` on the same params and batch (a VLM's with image
+    embeddings and its gates at XGATE), within LOSS_RTOL and
+    GRAD_REL_L2; a top-1 MoE's router gradients, zero analytically, are
+    shown zero in both."""
     jcfg = jax_get_config(arch).reduced().replace(efficient_ce=efficient_ce)
     cfg = get_config(arch).reduced().replace(efficient_ce=efficient_ce)
-    ref_params = jax_init_params(jcfg, jax.random.PRNGKey(0))
-    params = port(ref_params)
+    tree = zoo_params(jcfg)
+    ref_params = jax.tree_util.tree_map(jnp.asarray, tree)
+    params = port(tree)
     batch = lm_batch(cfg)
-    jbatch = {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()}
+    feats = image_embeds(cfg)
+    jbatch = with_images({k: jnp.asarray(v, jnp.int32)
+                          for k, v in batch.items()}, feats, jnp.asarray)
     want_loss, want_grads = jax.jit(jax.value_and_grad(
         lambda p: jax_loss_fn(jcfg, p, jbatch)))(ref_params)
-    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tbatch = with_images({k: torch.from_numpy(v) for k, v in batch.items()},
+                         feats, torch.from_numpy)
     loss, grads = grads_of(cfg, params, tbatch)
     np.testing.assert_allclose(float(loss), float(want_loss),
                                rtol=LOSS_RTOL)
     # loss_fn alone (no graph) gives the same loss
     with torch.no_grad():
         assert float(loss_fn(cfg, params, tbatch)) == float(loss)
-    assert_trees_rel_l2(grads, want_grads, GRAD_REL_L2)
+    routers = [path for path, _ in tree_paths(grads)
+               if cfg.top_k == 1 and path[-1] == "router"]
+    assert_trees_rel_l2(grads, want_grads, GRAD_REL_L2, zero_leaves=routers)
