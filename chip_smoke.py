@@ -11,7 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and its softcap division (csrc/div_by.cuh) must equal IEEE division
    bit for bit for the configs' caps (csrc/tools/check_division.cu).
 2. Every kernel against its plain PyTorch version on the card, at ragged,
-   unaligned and main-path shapes, with the tolerances stated below (the
+   unaligned and main-path shapes (ssd_scan also below and across its
+   bf16 chunk of 128: l = 32 at the federated SSM run's folded shape,
+   l = 200), with the tolerances stated below (the
    compression kernels bit for bit, fed_agg in fp32 also bit for bit at
    the char-LSTM's and the speech CNN's widths), and timed (CUDA events; device time,
    and as the host issues the calls) beside its memory bound and a
@@ -53,7 +55,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    resumed trace the uninterrupted one's tail, byte for byte).  Each run
    launches fed_agg once a merge; fed_agg is then checked bit for bit
    and timed at every (K, P) those runs merged, and one executor round of
-   each model is profiled.  Then serving: Gemma 2 (2B) at
+   each model is profiled.  Then the federated SSM run
+   (run_federated_ssm): examples/federated_pretrain.py's experiment
+   (FedLesScan, 12 clients, 4 a round, 25 % stragglers, 6 rounds, batch
+   16, local Adam 1e-3) with its ModelDef over mamba2-130m at full width
+   and depth (fp32 params, bf16 activations, vocab 50,280), on the
+   card's default path, the vectorized executor (every Mamba block's scan
+   in the ssd_scan kernel under its vmap rule: one launch a layer a step
+   at the folded (64, 32, 24, 64, 128), B/C head-broadcast views; no
+   remat under torch.func; fed_agg once a merge at P = 128,983,488), and
+   again on the eager loop: the same trace and cohorts, params and losses
+   held as the FEMNIST runs are.  Before the runs one executor step
+   client by client against the eager loop's grads (fp32 within twice
+   what regrouping the plain scan moves them by; bf16 within twice what
+   computing in bf16 at all moves them by), every scan call of the step
+   held against the plain scan on the same folded inputs; after them one
+   executor round profiled and fed_agg held and timed at the bucket's
+   (4, 128,983,488).  Then the example CLIs quickstart and
+   straggler_study (--ratios 0.3 --rounds 4) as subprocesses on the card,
+   each exiting 0, their tables printed.  Then serving: Gemma 2 (2B) at
    full width and depth (random weights from a seed) prefills 2 prompts
    of 5120 tokens through the flash_attention kernel and decodes 32
    greedy tokens (launch.serve.generate), with exactly one kernel launch
@@ -128,6 +148,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -146,7 +167,8 @@ KERNEL_SOURCES = ("fed_agg", "compress", "flash_attention",  # csrc/<name>.cu
 MAIN_P = 6_603_710                   # femnist_cnn parameters
 # every FL model's params at Table I's width (launch/train.build_dataset):
 # the char-LSTM's and the speech CNN's merges run fed_agg at ragged widths
-MODEL_P = {"femnist": MAIN_P, "shakespeare": 818_402, "speech": 67_267}
+MODEL_P = {"femnist": MAIN_P, "shakespeare": 818_402, "speech": 67_267,
+           "mamba2-130m": 128_983_488}
 PLATFORMS = ("gcf-gen2", "aws-lambda", "openfaas")   # round-robin fleet
 MAIN_K = 8                           # clients per round on the main path
 MAIN_CHUNK = 256                     # int8 values per scale (the default)
@@ -218,7 +240,11 @@ FP32_LOGIT_TOL = 1e-3        # the model in fp32 (the JAX tests' bound)
 # ssd_scan checks: the kernel against its plain version, inputs at the JAX
 # tests' scales (x, B, C ~ 0.5·N(0, 1), a_dt = -0.3·|N(0, 1)|)
 SSD_SHAPES = ((1, 1, 2, 16, 8), (2, 100, 3, 40, 16), (1, 129, 2, 64, 128),
-              (2, 300, 4, 64, 64), (1, 1000, 2, 24, 100))  # (b, l, h, p, n)
+              (2, 300, 4, 64, 64), (1, 1000, 2, 24, 100),  # (b, l, h, p, n)
+              # below and across the bf16 kernel's chunk (TILE, 128): the
+              # federated SSM run's folded executor call, a partial last
+              # chunk at mamba2-130m's heads
+              (64, 32, 24, 64, 128), (2, 200, 24, 64, 128))
 SSD_FP32_TOL = 1e-4          # rtol and atol
 SSD_BF16_ATOL = 1e-3         # plus one bf16 ulp of max |y|
 # in the serve runs, each scan call on the model's own activations: y as
@@ -249,6 +275,29 @@ SSD_GRAD_TOL = 1e-5
 # the scan kernels' names as the profiler lists them (fp32; bf16 passes)
 SSD_KERNEL_NAMES = ("ssd_kernel", "chunk_state_kernel", "state_pass_kernel",
                     "chunk_output_kernel")
+# the federated SSM run: examples/federated_pretrain.py's experiment
+# (FedLesScan, 12 clients, 4 a round, 25 % stragglers, 6 rounds, batch 16,
+# local Adam 1e-3, sequences of 32 tokens) with its ModelDef over the full
+# mamba2-130m config (fp32 params, bf16 activations, vocab 50,280; the
+# token stream's ids lie below 256), on the executor and on the eager
+# loop.  The executor's grads are held against the eager loop's within
+# TRAIN_GRAD_FACTOR times what regrouping the plain scan's sums moves them
+# by: at l = 32 the regrouping chunk must lie below the sequence
+FED_SSM_ARCH = "mamba2-130m"
+FED_SSM_CLIENTS, FED_SSM_ROUNDS, FED_SSM_STRAGGLERS = 12, 6, 0.25
+FED_SSM_REGROUP_CHUNK = 16
+# its two runs' final params: 138 local Adam steps of a bf16 model carry
+# rounding further than the FEMNIST runs' FL_PARAM_REL_L2 (on an H100 the
+# executor and the eager loop ended 0.121 apart): held, as the char-LSTM
+# is, beside the spread of the executor against itself from initial
+# params one ulp apart, within FED_SSM_PARAM_FACTOR times that spread;
+# the step's grads are held for the first FED_SSM_GRAD_CLIENTS clients of
+# the executor's group of 4
+FED_SSM_PARAM_FACTOR = TRAIN_GRAD_FACTOR
+FED_SSM_GRAD_CLIENTS = 2
+# the example CLIs run once on the card, as subprocesses
+EXAMPLE_RUNS = (("quickstart",),
+                ("straggler_study", "--ratios", "0.3", "--rounds", "4"))
 # musicgen-medium serve: prompts, codebook frames a prompt, new tokens
 MUSICGEN_SERVE = (2, 1024, 8)
 # the rest of the zoo, served at full width after the SSM models: the VLM
@@ -1201,6 +1250,7 @@ def _check_ratios(label: str, trace_path: str, ratio) -> None:
 def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
                   dataset: str = "femnist", platforms: bool = False,
                   nudge: bool = False, round_timeout_s: float = 120.0,
+                  straggler_fraction: float = 0.3, setup=None,
                   **overrides) -> dict:
     """One FL run on "cuda" through run_experiment, the launch counts set
     to 0 just before it and read just after.  ``dataset`` picks the model
@@ -1212,14 +1262,18 @@ def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
     executor_devices set to their sizes.  ``cudnn=False`` runs the
     convolutions in PyTorch's own kernels instead of cuDNN's; ``nudge``
     starts from the initial params moved up by one ulp each.  3 rounds
-    of 120 s unless ``n_rounds`` or ``round_timeout_s`` say otherwise."""
+    of 120 s, MAIN_K clients a round, unless ``n_rounds``,
+    ``round_timeout_s`` or ``clients_per_round`` say otherwise.  ``setup``
+    = (task, parts, test_parts) replaces ``dataset``'s, which then only
+    names the model (MODEL_P).  Peak device memory is printed too."""
     from repro_torch.core.flatten import tree_leaves, tree_map
     from repro_torch.fl import experiment
     from repro_torch.fl.client import ClientPool
     from repro_torch.kernels import KERNELS, reset_launches
     from repro_torch.launch.train import build_dataset
 
-    task, parts, test_parts = build_dataset(dataset, n_clients=10)
+    task, parts, test_parts = (build_dataset(dataset, n_clients=10)
+                               if setup is None else setup)
     init = task.init_params(0)
     if nudge:
         init = tree_map(lambda t: torch.nextafter(
@@ -1240,10 +1294,12 @@ def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
                       for i, cid in enumerate(sorted(parts))}
         overrides["platforms"] = assignment
     overrides.setdefault("n_rounds", 3)
+    overrides.setdefault("clients_per_round", MAIN_K)
+    overrides.setdefault("eval_every", 3)
     cfg = experiment.ExperimentConfig(
-        clients_per_round=MAIN_K, eval_every=3,
-        scenario=experiment.ScenarioConfig(straggler_fraction=0.3,
-                                           round_timeout_s=round_timeout_s),
+        scenario=experiment.ScenarioConfig(
+            straggler_fraction=straggler_fraction,
+            round_timeout_s=round_timeout_s),
         trace_path=trace_path, **overrides)
     # host time inside local training: the eager loop's local_train ends
     # by reading its loss back; the executor's batch_work_fn is followed
@@ -1285,6 +1341,7 @@ def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
     torch.backends.cudnn.enabled = cudnn
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
         params, res = experiment.run_experiment(
@@ -1293,6 +1350,7 @@ def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k.__name__: k.launches for k in KERNELS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
     finally:
         torch.backends.cudnn.enabled = True
         ClientPool.batch_work_fn = batch_work_fn
@@ -1327,7 +1385,7 @@ def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
            "local_train_s": spent["s"], "local_steps": spent["steps"],
            "client_steps": spent["client_steps"],
            "ms_per_local_step": 1e3 * spent["s"] / max(1, spent["steps"]),
-           "local_share_of_wall": spent["s"] / wall,
+           "local_share_of_wall": spent["s"] / wall, "peak_gb": peak_gb,
            "compression_ratio": ratio, "launches": launches}
     log(json.dumps({"main_path": out}))
     out.update(_params=params, _trace=trace,
@@ -1466,27 +1524,46 @@ def profile_local_training() -> dict:
 
 
 def _profile_summary(prof, steps: int, wall: float) -> dict:
-    on_card = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    """Per step: the card's kernels (busy time, operations, the largest by
+    name) and the host's operations by self time.  A record_function span
+    shows on the card as an annotation over its kernels: counted apart
+    (``spans_ms_per_step``), not as busy time."""
+    on_card, spans = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if (getattr(e, "is_user_annotation", False)
+                or e.name == "ssd_scan_plain_backward"):
+            spans[e.name] = spans.get(e.name, 0.0) + e.time_range.elapsed_us()
+        else:
+            on_card.append(e)
     busy_us = sum(e.time_range.elapsed_us() for e in on_card)
     by_name = {}
     for e in on_card:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     return {"steps": steps, "wall_ms_per_step": 1e3 * wall / steps,
             "device_busy_ms_per_step": busy_us / 1e3 / steps,
             "device_busy_share": busy_us / 1e6 / wall,
             "device_ops_per_step": len(on_card) / steps,
             "top_ms_per_step": [[name[:80], us / 1e3 / steps]
-                                for name, us in top]}
+                                for name, us in top],
+            "spans_ms_per_step": {name: us / 1e3 / steps
+                                  for name, us in spans.items()},
+            "host_top_ms_per_step": [
+                [a.key[:60], a.self_cpu_time_total / 1e3 / steps,
+                 a.count / steps] for a in host[:6]]}
 
 
 def profile_vectorized_round(dataset: str = "femnist",
-                             epochs: int = None) -> dict:
-    """One round's cohort (MAIN_K clients, a full-width model, FEMNIST's
-    CNN by default) through the vectorized executor under torch.profiler:
-    device operations and busy time per executor step (one step trains
-    all K clients).  ``epochs`` shortens the round (the steps are alike)."""
+                             epochs: int = None, setup=None,
+                             clients: int = MAIN_K) -> dict:
+    """One round's cohort (``clients`` clients, a full-width model,
+    FEMNIST's CNN by default) through the vectorized executor under
+    torch.profiler: device operations and busy time per executor step (one
+    step trains all K clients).  ``epochs`` shortens the round (the steps
+    are alike); ``setup`` = (task, parts, _) replaces ``dataset``'s."""
     from dataclasses import replace
 
     from torch.profiler import ProfilerActivity, profile
@@ -1495,13 +1572,14 @@ def profile_vectorized_round(dataset: str = "femnist",
     from repro_torch.fl.tasks import ClassificationTask
     from repro_torch.launch.train import build_dataset
 
-    task, parts, _ = build_dataset(dataset, n_clients=10)
+    task, parts, _ = (build_dataset(dataset, n_clients=10) if setup is None
+                      else setup)
     if epochs is not None:
         task = ClassificationTask(task.model,
                                   replace(task.config, epochs=epochs),
                                   device=task.device)
     pool = ClientPool(task, parts, None, seed=0)
-    cids = pool.client_ids[:MAIN_K]
+    cids = pool.client_ids[:clients]
     params = task.init_params(0)
     pool.batch_work_fn(cids, params, 0)           # warm-up
     steps = sum(task.config.epochs * -(-len(pool.clients[g[0]].dataset)
@@ -1520,15 +1598,16 @@ def profile_vectorized_round(dataset: str = "femnist",
     return out
 
 
-def check_merge_launches(run: dict) -> None:
+def check_merge_launches(run: dict, model_kernels=()) -> None:
     """An identity-merge run launches fed_agg once a merge, and no other
-    merge kernel."""
+    kernel but the model's own (``model_kernels``)."""
     merges = sum(1 for m in run["merged_updates"] if m)
     launches = run["launches"]
     if merges < 1 or launches["fed_agg"] != merges:
         raise RuntimeError(f"{run['run']}: {launches['fed_agg']} fed_agg "
                            f"launches for {merges} merges")
-    others = {k: n for k, n in launches.items() if k != "fed_agg" and n}
+    others = {k: n for k, n in launches.items()
+              if k != "fed_agg" and k not in model_kernels and n}
     if others:
         raise RuntimeError(f"{run['run']}: other kernels launched: {others}")
 
@@ -1664,6 +1743,258 @@ def check_merge_sizes(gen, part: str, runs) -> list:
             for K, P in sizes]
 
 
+def _fed_ssm_task(dtype: str = None):
+    """examples/federated_pretrain.py's task with its ModelDef over the
+    full FED_SSM_ARCH config (activations in ``dtype`` if given), on
+    "cuda"."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import federated_pretrain
+    from repro_torch.fl.tasks import ClassificationTask
+
+    cfg = get_config(FED_SSM_ARCH)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    model = federated_pretrain.cfg_as_model(cfg, f"{FED_SSM_ARCH}-lm")
+    return ClassificationTask(model, federated_pretrain.TASK, device="cuda")
+
+
+def check_ssm_executor_grads(parts) -> dict:
+    """The first step of one executor group (4 clients, the example's
+    cohort), its first FED_SSM_GRAD_CLIENTS clients one by one: the
+    vmapped grads (the scan in the kernel
+    under the vmap rule, one folded launch a layer) against the eager
+    loop's (autograd, remat, the kernel unfolded) on each client's first
+    batch, every scan call of the vmapped step held against the plain
+    scan on the same folded inputs (_ssd_checked_per_call).  In fp32,
+    check_train_grads' rule, with the matmuls' sums regrouped beside the
+    scan's: every leaf within TRAIN_GRAD_FACTOR times the larger of what
+    regrouping the plain scan's sums (chunks of FED_SSM_REGROUP_CHUNK
+    against the sequence's 32) and what taking the batch in two halves
+    (other GEMM shapes, so other cuBLAS sums) move the eager grads by.
+    The executor's batched GEMMs differ from the eager loop's as the
+    halves do: on an H100 80GB HBM3 (700 W) the scan's regrouping alone
+    moved the grads by about half of the gap between the two paths.  In
+    bf16 (the run's activations) the vmapped and the plain matmuls round
+    each product to bf16 in their own way, which moves the grads far
+    more; there every leaf is held within TRAIN_GRAD_FACTOR times what
+    computing in bf16 at all moves the eager grads by (bf16 against fp32
+    activations)."""
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_map, tree_paths
+    from repro_torch.fl.client import ClientPool
+    from repro_torch.fl.executor import VectorizedExecutor, _bucket
+    from repro_torch.kernels import reset_launches, ssd_scan
+
+    n_layers = get_config(FED_SSM_ARCH).n_layers
+    out, fp32_grads = {}, []
+    for dtype in ("float32", "bfloat16"):
+        task = _fed_ssm_task(dtype)
+        params = task.init_params(0)
+        pool = ClientPool(task, parts, None, seed=0)
+        cids = pool.client_ids[:4]
+        ex = VectorizedExecutor(task)
+        xs, ys, ms = ex._stage([pool.clients[c].dataset for c in cids],
+                               [pool.client_seed(c, 0) for c in cids],
+                               _bucket(len(cids)))
+        x, y, m = (torch.from_numpy(a[:, 0]).cuda() for a in (xs, ys, ms))
+        stacked = tree_map(lambda t: t.unsqueeze(0).expand(
+            len(cids), *t.shape).clone(), params)
+        reset_launches()
+        per_call = {"calls": 0, "max_err_y": 0.0, "max_err_state": 0.0}
+        with _ssd_checked_per_call(per_call):
+            grads, losses = vmap(grad_and_value(ex._masked_loss))(
+                stacked, x, y, m)
+        torch.cuda.synchronize()
+        launches = ssd_scan.launches
+        if per_call["calls"] != launches or launches != n_layers:
+            raise RuntimeError(f"federated ssm {dtype} step: "
+                               f"{per_call['calls']} scan calls checked of "
+                               f"{launches} launches, {n_layers} layers")
+
+        def eager_grads(k, halves=False):
+            """Client k's grads as the eager loop takes them; with
+            ``halves`` its batch in two halves, each weighted by its
+            share of the samples."""
+            leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+            parts = ((slice(0, 8), slice(8, None)) if halves
+                     else (slice(None),))
+            total = 0.0
+            for rows in parts:
+                share = m[k][rows].sum() / m[k].sum()
+                loss = ex._masked_loss(leaves, x[k][rows], y[k][rows],
+                                       m[k][rows]) * share
+                loss.backward()
+                total += float(loss.detach())
+            return total, tree_map(lambda t: t.grad, leaves)
+
+        worst, clients = 0.0, []
+        for k in range(FED_SSM_GRAD_CLIENTS):
+            loss, eager = eager_grads(k)
+            if dtype == "float32":
+                with _ssd_in_plain_version():
+                    _, base = eager_grads(k)
+                with _ssd_in_plain_version(tile=FED_SSM_REGROUP_CHUNK):
+                    _, moved = eager_grads(k)
+                _, halved = eager_grads(k, halves=True)
+                spreads = [(base, moved), (eager, halved)]
+                fp32_grads.append(eager)
+            else:
+                spreads = [(fp32_grads[k], eager)]
+            client = {"loss": loss, "executor_loss": float(losses[k]),
+                      "worst_rel_l2_over_bound": 0.0}
+            spread_leaves = list(zip(*(
+                [_rel_l2(mv_t, b_t) for (_, b_t), (_, mv_t) in
+                 zip(tree_paths(b), tree_paths(mv))] for b, mv in spreads)))
+            for ((path, g), (_, e)), leaf_spreads in zip(
+                    zip(tree_paths(grads), tree_paths(eager)),
+                    spread_leaves):
+                if not bool(torch.isfinite(g[k]).all()):
+                    raise RuntimeError(f"federated ssm {dtype}: non-finite "
+                                       f"executor grads at "
+                                       f"{'/'.join(path)}")
+                got, spread = _rel_l2(g[k], e), max(leaf_spreads)
+                ratio = (got / (TRAIN_GRAD_FACTOR * spread) if spread
+                         else 0.0 if got == 0.0 else math.inf)
+                if ratio >= client["worst_rel_l2_over_bound"]:
+                    client.update(worst_rel_l2_over_bound=ratio,
+                                  worst_leaf="/".join(path), rel_l2=got,
+                                  spread_rel_l2=list(leaf_spreads))
+            clients.append(client)
+            worst = max(worst, client["worst_rel_l2_over_bound"])
+        out[dtype] = {"clients": clients, "ssd_launches": launches,
+                      "per_call_check": per_call,
+                      "spread": ("regrouping the plain scan or the batch"
+                                 if dtype == "float32"
+                                 else "bf16 against fp32"),
+                      "worst_rel_l2_over_bound": worst}
+        del grads, stacked
+    log(json.dumps({"federated_ssm_grads": out}))
+    for dtype, res in out.items():
+        if not res["worst_rel_l2_over_bound"] <= 1.0:
+            raise RuntimeError(
+                f"federated ssm {dtype}: executor grads differ from the "
+                f"eager loop's by {res['worst_rel_l2_over_bound']:.4g} of "
+                f"the bound ({TRAIN_GRAD_FACTOR} x the spread of "
+                f"{res['spread']})")
+    return out
+
+
+def run_federated_ssm(gen, part: str) -> dict:
+    """examples/federated_pretrain.py's experiment at the full width and
+    depth of mamba2-130m on the card's default path, the vectorized
+    executor (every Mamba block's scan in the kernel under the vmap rule,
+    fed_agg once a merge at P = 128,983,488), then on the eager loop: the
+    same trace and cohorts and the losses held as check_runs_agree holds
+    the FEMNIST runs, the params within FED_SSM_PARAM_FACTOR times the
+    spread of the executor from initial params one ulp apart (a third
+    run).  Before the runs one
+    executor step client by client (check_ssm_executor_grads); after
+    them one executor round profiled and fed_agg bit for bit and timed
+    at the bucket's (K, P)."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import federated_pretrain
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    parts, test_parts = federated_pretrain.build_experiment(FED_SSM_CLIENTS)
+    grads = check_ssm_executor_grads(parts)
+    setup = (_fed_ssm_task(), parts, test_parts)
+    config = federated_pretrain.config(FED_SSM_ROUNDS, FED_SSM_STRAGGLERS)
+    kw = dict(dataset=FED_SSM_ARCH, setup=setup, strategy=config.strategy,
+              n_rounds=config.n_rounds,
+              clients_per_round=config.clients_per_round,
+              eval_every=config.eval_every,
+              straggler_fraction=config.scenario.straggler_fraction,
+              round_timeout_s=config.scenario.round_timeout_s)
+    executor = run_main_path("federated ssm", **kw)
+    eager = run_main_path("federated ssm (eager)", vectorized=False, **kw)
+    nudged = run_main_path("federated ssm (init + 1 ulp)", nudge=True, **kw)
+    floor = check_runs_agree(nudged, executor, param_bound=math.inf)
+    gap = check_runs_agree(executor, eager, floor,
+                           param_bound=FED_SSM_PARAM_FACTOR * floor["rel_l2"])
+    steps = executor["local_steps"]
+    if executor["launches"]["ssd_scan"] < steps * get_config(
+            FED_SSM_ARCH).n_layers:
+        raise RuntimeError(f"federated ssm: {executor['launches']} for "
+                           f"{steps} executor steps")
+    for run in (executor, eager, nudged):
+        check_merge_launches(run, model_kernels=("ssd_scan",))
+    profile = profile_vectorized_round(FED_SSM_ARCH, setup=setup, clients=4)
+    bucket = config.clients_per_round
+    # the scan at the executor's folded shape: bf16, B/C head-broadcast
+    cfg = get_config(FED_SSM_ARCH)
+    folded = (bucket * federated_pretrain.TASK.batch_size,
+              parts["client_0"].x.shape[1], cfg.ssm_heads, cfg.ssm_head_dim,
+              cfg.ssm_state)
+    args = _ssd_inputs(folded, gen, torch.bfloat16, True)
+    flops, n_bytes = _ssd_work(*args[:3])
+    scan = {"shape": f"(b, l, h, p, n) = {folded} bf16, B/C broadcast",
+            "ms": time_ms(lambda: ssd_scan(*args, return_state=True),
+                          runs=10),
+            "plain_ms": time_ms(
+                lambda: ssd_scan_plain(*args, return_state=True), runs=3,
+                warmup=1),
+            "bound_ms": bound_ms(n_bytes, flops, part, BF16_FLOPS)[0],
+            "bound_by": bound_ms(n_bytes, flops, part, BF16_FLOPS)[1]}
+    del args
+    merge = dict(check_fed_agg_at(gen, part, bucket,
+                                  MODEL_P[FED_SSM_ARCH]),
+                 K=bucket, P=MODEL_P[FED_SSM_ARCH])
+    out = {"arch": FED_SSM_ARCH, "params": executor["params"],
+           "executor_wall_s_per_round": executor["wall_s_per_round"],
+           "eager_wall_s_per_round": eager["wall_s_per_round"],
+           "executor_ms_per_step": executor["ms_per_local_step"],
+           "executor_steps": steps,
+           "eager_ms_per_client_step": eager["ms_per_local_step"],
+           "profiled_ms_per_step": profile["wall_ms_per_step"],
+           "device_ops_per_step": profile["device_ops_per_step"],
+           "device_busy_ms_per_step": profile["device_busy_ms_per_step"],
+           "device_busy_share": profile["device_busy_share"],
+           "scan_plain_backward_span_ms_per_step": profile[
+               "spans_ms_per_step"].get("ssd_scan_plain_backward"),
+           "executor_peak_gb": executor["peak_gb"],
+           "eager_peak_gb": eager["peak_gb"],
+           "executor_launches": executor["launches"],
+           "eager_launches": eager["launches"],
+           "scan_shapes": grads["bfloat16"]["per_call_check"]["shapes"],
+           "scan_at_folded_shape": scan,
+           "params_rel_l2": gap["rel_l2"],
+           "floor_params_rel_l2": floor["rel_l2"], "fed_agg": merge,
+           "train_loss": [executor["train_loss_before"],
+                          executor["train_loss_after"],
+                          eager["train_loss_after"]],
+           "final_accuracy": [executor["final_accuracy"],
+                              eager["final_accuracy"]]}
+    log(json.dumps({"federated_ssm": out}))
+    return out
+
+
+def run_example_clis() -> dict:
+    """The example CLIs of EXAMPLE_RUNS once each, as subprocesses on the
+    card (their default device): each must exit 0; their tables are
+    printed."""
+    out = {}
+    for name, *flags in EXAMPLE_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.examples.{name}", *flags],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        wall = time.perf_counter() - t0
+        log(f"example {name} {' '.join(flags)}: exit {proc.returncode} in "
+            f"{wall:.1f} s")
+        for line in proc.stdout.splitlines():
+            log(f"  | {line}")
+        if proc.returncode != 0:
+            log(proc.stderr[-4000:])
+            raise RuntimeError(f"example {name} exited {proc.returncode}")
+        out[name] = {"flags": flags, "wall_s": wall}
+    log(json.dumps({"example_clis": out}))
+    return out
+
+
 def _max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| in fp32, a row of the batch and 1024 positions at a
     time (the full difference of two logit tensors would need 10 GB)."""
@@ -1776,19 +2107,26 @@ def _ssd_in_plain_version(tile=None):
 
 @contextlib.contextmanager
 def _ssd_checked_per_call(report: dict):
-    """Route models/ssm.py's scan through the kernel and, on the same
-    inputs, its plain version at the kernel's tile: every call's y must
-    agree within _ssd_y_tol (in fp32 with its atol SSD_FP32_TOL of
-    max(1, max |y|): the model's fp32 y reaches several hundred, where the
-    fp32 rounding of the scan's sums passes an absolute 1e-4) and its
-    state within SSD_FP32_TOL (relative, or of max |state|).  The kernel's
-    result goes on, so the model runs its main path, under autograd too;
-    ``report`` gathers the calls and the largest errors."""
-    from repro_torch.kernels.ssd_scan import TILE, ssd_scan, ssd_scan_plain
-    from repro_torch.models import ssm
+    """Route every call of the scan kernels (kernels/ssd_scan.py's
+    ``_scan``, which the wrapper, its autograd Function and its vmap rule
+    all reach: under ``torch.func.vmap`` with the vmapped dim folded into
+    the batch) through a check against the plain version at the kernel's
+    tile on the same inputs: every call's y must agree within _ssd_y_tol
+    (in fp32 with its atol SSD_FP32_TOL of max(1, max |y|): the model's
+    fp32 y reaches several hundred, where the fp32 rounding of the scan's
+    sums passes an absolute 1e-4) and its state within SSD_FP32_TOL
+    (relative, or of max |state|).  The kernel's result goes on, so the
+    model runs its main path, under autograd and vmap too; ``report``
+    gathers the calls, their shapes and the largest errors."""
+    import importlib
 
-    def checked(x, a_dt, B, C, chunk=128, return_state=False):
-        y, state = ssd_scan(x, a_dt, B, C, chunk, return_state=True)
+    from repro_torch.kernels.ssd_scan import TILE, ssd_scan_plain
+
+    module = importlib.import_module("repro_torch.kernels.ssd_scan")
+    kernel = module._scan
+
+    def checked(x, a_dt, B, C, chunk, return_state):
+        y, state = kernel(x, a_dt, B, C, chunk, True)
         with torch.no_grad():
             want, want_state = ssd_scan_plain(x, a_dt, B, C, TILE, True)
         label = (f"ssd_scan call {report['calls']} {tuple(x.shape)} "
@@ -1804,6 +2142,11 @@ def _ssd_checked_per_call(report: dict):
             atol=SSD_FP32_TOL * float(want_state.abs().max()),
             msg=lambda m: f"{label}, state: {m}")
         report["calls"] += 1
+        shape = (f"{tuple(x.shape)} {str(x.dtype)[6:]}, B/C head stride "
+                 f"{B.stride(2)}")
+        report.setdefault("shapes", [])
+        if shape not in report["shapes"]:
+            report["shapes"].append(shape)
         y_err = max_abs_err(y, want)
         report["max_err_y"] = max(report["max_err_y"], y_err)
         report["max_err_y_over_atol"] = max(
@@ -1812,12 +2155,11 @@ def _ssd_checked_per_call(report: dict):
                                       max_abs_err(state, want_state))
         return (y, state) if return_state else y
 
-    kernel = ssm.ssd_scan
-    ssm.ssd_scan = checked
+    module._scan = checked
     try:
         yield
     finally:
-        ssm.ssd_scan = kernel
+        module._scan = kernel
 
 
 def profile_decode(cfg, params, prompt, steps: int = 4,
@@ -3051,6 +3393,9 @@ def main() -> int:
         "eager_ms_per_client_step": fleet["eager"]["ms_per_local_step"],
         "params_rel_l2": fleet["gap"]["rel_l2"]}}))
     log(f"FL runs done at {time.perf_counter() - T0:.1f} s")
+    federated_ssm = run_federated_ssm(gen, part)
+    run_example_clis()
+    log(f"federated ssm phase done at {time.perf_counter() - T0:.1f} s")
     serve = run_serve(rows[-2])
     log(f"{SERVE_ARCH} serve done at {time.perf_counter() - T0:.1f} s")
     ssm_serves = []
@@ -3082,6 +3427,20 @@ def main() -> int:
             "kernel_forward_ms"],
         "train_plain_backward_ms": training["ssd_autograd"]["mamba2-130m"][
             "plain_backward_ms"]})
+    # the federated SSM run: the scan under the executor's vmap rule, the
+    # merge at mamba2-130m's P
+    rows[-1].update({
+        "executor_launches": federated_ssm["executor_launches"]["ssd_scan"],
+        "executor_steps": federated_ssm["executor_steps"],
+        "executor_shape": federated_ssm["scan_shapes"],
+        **{f"executor_{k}": federated_ssm["scan_at_folded_shape"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
+    fed_ssm_merge = federated_ssm["fed_agg"]
+    rows[0].update({
+        "ssm_launches": federated_ssm["executor_launches"]["fed_agg"],
+        **{f"ssm_{k}": fed_ssm_merge[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "shape")}})
     rows[-2]["musicgen_launches"] = training["musicgen_serve"]["launches"][
         "flash_attention"]
     for arch, _, _ in ZOO_SERVES:

@@ -7,6 +7,8 @@ from .clustering import (ClusteringResult, calinski_harabasz,
                          calinski_harabasz_batch, cluster_clients, dbscan,
                          pairwise_sq_dists)
 from .compress import SCHEMES, CompressionConfig, UpdateCompressor
+from .device_batch import (DeviceUpdateBatch, pipeline_enabled,
+                           reset_transfer_stats, transfer_stats)
 from .features import (ema, ema_step, feature_matrix, missed_round_ema,
                        normalize01, total_ema, training_ema)
 from .flatten import flatten_params, tree_leaves, tree_map
@@ -28,5 +30,6 @@ __all__ = [
     "ClientRecord", "SERVER_OPTS", "MergePipeline", "ServerOptConfig",
     "SelectionPlan", "select_clients", "select_random", "STRATEGIES",
     "FedAsync", "FedAvg", "FedBuff", "FedLesScan", "FedProx", "Strategy",
-    "StrategyConfig", "make_strategy",
+    "StrategyConfig", "make_strategy", "DeviceUpdateBatch",
+    "pipeline_enabled", "transfer_stats", "reset_transfer_stats",
 ]

@@ -27,12 +27,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..kernels.compress import int8_decode, int8_encode, topk_encode
+from ..kernels.compress import (COMPRESS_SCHEMES, int8_decode, int8_encode,
+                               topk_encode)
 from .flatten import flatten_params, tree_map
 
 Pytree = Any
 
-SCHEMES = ("none", "topk", "int8")
+SCHEMES = COMPRESS_SCHEMES
 
 # simulated wire-format costs (bytes)
 _FP32 = 4            # dense value

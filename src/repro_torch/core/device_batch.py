@@ -11,7 +11,11 @@ tree is built only when a consumer needs tree structure (``tree``), and
 the loss vector crosses to the host in one transfer.
 
 The port always takes this path; it has no switch back to per-client
-trees.
+trees, so ``pipeline_enabled()`` is always True.
+
+``transfer_stats`` counts, process-wide as the reference does, the bytes
+and rows rebuilt as per-client trees (``tree``) and the host transfers of
+the loss vector (``loss``); ``reset_transfer_stats`` zeroes them.
 """
 from __future__ import annotations
 
@@ -21,6 +25,35 @@ import numpy as np
 import torch
 
 Pytree = Any
+
+
+def pipeline_enabled() -> bool:
+    """Whether consumers read the batch matrix: always, in the port (the
+    reference's ``REPRO_DEVICE_PIPELINE`` switch has no counterpart)."""
+    return True
+
+
+# the reference's host-transfer counters (core/device_batch.py there)
+_TRANSFER = {"materialize_bytes": 0, "materialize_rows": 0,
+             "loss_syncs": 0}
+
+
+def transfer_stats() -> Dict[str, int]:
+    return dict(_TRANSFER)
+
+
+def reset_transfer_stats() -> None:
+    for k in _TRANSFER:
+        _TRANSFER[k] = 0
+
+
+def count_materialization(nbytes: int, rows: int = 1) -> None:
+    _TRANSFER["materialize_bytes"] += int(nbytes)
+    _TRANSFER["materialize_rows"] += int(rows)
+
+
+def count_loss_sync() -> None:
+    _TRANSFER["loss_syncs"] += 1
 
 
 class DeviceUpdateBatch:
@@ -51,8 +84,6 @@ class DeviceUpdateBatch:
         self._losses_np: Optional[np.ndarray] = None
         self._row_override: Dict[int, torch.Tensor] = {}
         self._trees: Dict[int, Pytree] = {}
-        self.loss_syncs = 0              # host transfers of the losses
-        self.materialized_rows = 0       # rows rebuilt as params trees
 
     @property
     def num_clients(self) -> int:
@@ -95,9 +126,10 @@ class DeviceUpdateBatch:
         """Client i's params tree, built on first use and kept."""
         tree = self._trees.get(i)
         if tree is None:
-            tree = self.unflatten(self.row(i))
+            flat = self.row(i)
+            tree = self.unflatten(flat)
             self._trees[i] = tree
-            self.materialized_rows += 1
+            count_materialization(flat.numel() * flat.element_size())
         return tree
 
     def loss(self, i: int) -> float:
@@ -107,5 +139,5 @@ class DeviceUpdateBatch:
             return 0.0
         if self._losses_np is None:
             self._losses_np = self._losses.detach().cpu().numpy()
-            self.loss_syncs += 1
+            count_loss_sync()
         return float(self._losses_np[i])

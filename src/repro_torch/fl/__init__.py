@@ -1,6 +1,8 @@
+from .checkpointing import RoundCheckpointer
 from .client import ClientPool, ClientState
 from .controller import (Controller, ExperimentResult, RoundStats,
                          TrainingDriver)
+from .executor import VectorizedExecutor
 from .metrics import (bias, effective_update_ratio, invocation_distribution,
                       time_to_accuracy, trailing_eur,
                       trailing_straggler_ratio, weighted_accuracy,
@@ -12,7 +14,8 @@ from .scheduler import (SCHEDULERS, AdaptiveScheduler, ApodotikoScheduler,
 from .tasks import ClassificationTask, TaskConfig
 
 __all__ = ["ClientPool", "ClientState", "Controller", "ExperimentResult",
-           "RoundStats", "TrainingDriver",
+           "RoundStats", "TrainingDriver", "VectorizedExecutor",
+           "RoundCheckpointer",
            "bias", "effective_update_ratio",
            "invocation_distribution", "weighted_accuracy",
            "windowed_update_ratio", "trailing_eur",

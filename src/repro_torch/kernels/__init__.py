@@ -14,7 +14,7 @@
   ssd_scan       — Mamba2 SSD chunked scan with the state carried inside
                    the block, and the final state (models/ssm.py)
 """
-from .compress import (int8_decode, int8_decode_plain, int8_encode,
+from .compress import (COMPRESS_SCHEMES, int8_decode, int8_decode_plain, int8_encode,
                        int8_encode_plain, topk_decode, topk_encode, topk_mask,
                        topk_mask_plain, topk_select)
 from .fed_agg import (APPLY_OPTS, fed_agg, fed_agg_apply,
@@ -33,7 +33,7 @@ def reset_launches() -> None:
         wrapper.launches = 0
 
 
-__all__ = ["APPLY_OPTS", "KERNELS", "fed_agg",
+__all__ = ["APPLY_OPTS", "COMPRESS_SCHEMES", "KERNELS", "fed_agg",
            "fed_agg_apply", "fed_agg_apply_plain", "fed_agg_apply_sharded",
            "fed_agg_plain", "fed_agg_sharded",
            "flash_attention", "flash_attention_plain",

@@ -36,6 +36,7 @@ import torch
 
 from . import build
 
+COMPRESS_SCHEMES = ("none", "topk", "int8")   # the codecs of core/compress.py
 _INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)   # fl32(1/127)
 _MAX_ROWS = 2 ** 31 - 1      # chunk rows a launch takes (one warp each)
 

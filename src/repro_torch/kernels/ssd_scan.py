@@ -38,7 +38,9 @@ autograd ``ssd_scan`` runs as ``_SSDScan``: the kernels compute the
 forward, and the backward recomputes the plain version in fp32 from the
 saved inputs and returns its vector-Jacobian product (what ``jax.grad``
 of the JAX package's ``ssd_chunked`` computes).  So the kernel runs the
-forward of training, and the plain version its backward.
+forward of training, and the plain version its backward.  Under
+``torch.func.vmap`` (the vectorized executor) ``_SSDScan``'s vmap rule
+folds the vmapped dim into the batch, so a call still launches once.
 """
 from __future__ import annotations
 
@@ -200,39 +202,89 @@ def _scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
     return (y, state) if return_state else y
 
 
+def _fold(t: torch.Tensor, bdim: Optional[int], size: int) -> torch.Tensor:
+    """``t`` with its vmapped dim ``bdim`` (None: not vmapped, so ``t`` is
+    expanded to ``size`` copies) folded into its batch dim: (size·b, ...).
+    A dim of stride 0 past the batch (B and C's head broadcast) is folded
+    at size 1 and expanded back, so the fold copies at most the
+    unexpanded tensor, never the broadcast heads; the last dim comes out
+    contiguous, as the kernels read it."""
+    t = (t.unsqueeze(0).expand(size, *t.shape) if bdim is None
+         else t.movedim(bdim, 0))
+    shape = (t.shape[0] * t.shape[1], *t.shape[2:])
+    base = t
+    for d in range(2, t.dim()):
+        if t.stride(d) == 0:
+            base = base.narrow(d, 0, 1)
+    base = base.reshape(shape[0], *base.shape[2:])
+    if base.stride(-1) != 1:
+        base = base.contiguous()
+    return base.expand(shape)
+
+
 class _SSDScan(torch.autograd.Function):
-    """The scan under autograd.  The forward is ``_scan`` (the kernels on
-    the card); the backward recomputes ``ssd_scan_plain`` in fp32 from the
-    saved inputs and returns its vector-Jacobian product, which is what
-    ``jax.grad`` differentiates in the JAX package (``ssd_chunked``: no
-    Pallas kernel there has a backward either).  The inputs are saved as
-    they came, so the head-broadcast views of B and C stay views; their
-    grads come back at the views' shape, and autograd sums them over the
-    heads through the ``expand`` that made the views.  All state lives in
-    ``ctx``, so ``torch.utils.checkpoint`` can re-run the forward."""
+    """The scan under autograd and ``torch.func``.  The forward is
+    ``_scan`` (the kernels on the card); the backward is the
+    vector-Jacobian product of ``ssd_scan_plain`` in fp32, recomputed from
+    the saved inputs by ``torch.func.vjp`` (so ``torch.func.grad`` traces
+    it too), which is what ``jax.grad`` differentiates in the JAX package
+    (``ssd_chunked``: no Pallas kernel there has a backward either).  The
+    inputs are saved as they came, so the head-broadcast views of B and C
+    stay views; their grads come back at the views' shape, and autograd
+    sums them over the heads through the ``expand`` that made the views.
+    All state lives in ``ctx``, so ``torch.utils.checkpoint`` can re-run
+    the forward.
+
+    Under ``torch.func.vmap`` (the vectorized executor trains a cohort
+    through ``vmap(grad_and_value(...))``) the ``vmap`` rule folds the
+    vmapped dim into the scan's batch dim, so the kernels still launch
+    once a call, at (V·b, l, h, p); ``_scan`` reads ``data_ptr()``, so no
+    generated rule can serve."""
 
     @staticmethod
-    def forward(ctx, x, a_dt, B, C, chunk, return_state):
-        ctx.save_for_backward(x, a_dt, B, C)
-        ctx.chunk = chunk
-        ctx.set_materialize_grads(False)
+    def forward(x, a_dt, B, C, chunk, return_state):
         return _scan(x, a_dt, B, C, chunk, return_state)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, a_dt, B, C, chunk, _ = inputs
+        ctx.save_for_backward(x, a_dt, B, C)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
     def backward(ctx, gy, gstate=None):
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
-        with torch.enable_grad(), torch.profiler.record_function(
-                "ssd_scan_plain_backward"):
+        need = ctx.needs_input_grad[:4]
+        saved = ctx.saved_tensors
+        # an output whose grad is None went unused: it counts as zero
+        used = [i for i, g in enumerate((gy, gstate)) if g is not None]
+        if not used or not any(need):
+            return None, None, None, None, None, None
+        wrt = [i for i in range(4) if need[i]]
+
+        def plain(*args):
+            inputs = list(saved)
+            for i, t in zip(wrt, args):
+                inputs[i] = t
             outs = ssd_scan_plain(*inputs, ctx.chunk, return_state=True)
-            # an output whose grad is None went unused: it counts as zero
-            used = [(o, g) for o, g in zip(outs, (gy, gstate))
-                    if g is not None]
-            grads = iter(torch.autograd.grad(
-                [o for o, _ in used], [t for t in inputs if t.requires_grad],
-                [g for _, g in used], materialize_grads=True))
-        return (*(next(grads) if t.requires_grad else None for t in inputs),
-                None, None)
+            return tuple(outs[i] for i in used)
+
+        with torch.profiler.record_function("ssd_scan_plain_backward"):
+            _, vjp_fn = torch.func.vjp(plain, *(saved[i] for i in wrt))
+            grads = iter(vjp_fn(tuple((gy, gstate)[i] for i in used)))
+        return (*(next(grads) if n else None for n in need), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, a_dt, B, C, chunk, return_state):
+        size = info.batch_size
+        folded = [_fold(t, d, size) for t, d in
+                  zip((x, a_dt, B, C), in_dims[:4])]
+        unfold = (size, folded[0].shape[0] // size)
+        out = _SSDScan.apply(*folded, chunk, return_state)
+        if not return_state:
+            return out.unflatten(0, unfold), 0
+        y, state = out
+        return (y.unflatten(0, unfold), state.unflatten(0, unfold)), (0, 0)
 
 
 def ssd_scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,

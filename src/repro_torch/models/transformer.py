@@ -15,10 +15,12 @@ remainder of ``n_layers % period`` leading pattern positions under
 and all read ``params["shared_attn"]``.  ``lax.scan`` over the stack
 becomes a Python loop; with ``cfg.remat`` each superblock of ``forward``
 runs under ``torch.utils.checkpoint`` when autograd records it (the
-reference's ``jax.checkpoint``).  As in the reference, a ``cross`` block
-skips its cross attention when the batch holds no ``image_embeds``, and
-its prefill then leaves the cache without the ``ck``/``cv`` that decode
-reads.
+reference's ``jax.checkpoint``), except under a ``torch.func`` transform,
+whose ``grad`` cannot run checkpoint's saved-tensor hooks: the vectorized
+executor's ``vmap(grad_and_value(...))`` does not remat.  As in the
+reference, a ``cross`` block skips its cross attention when the batch
+holds no ``image_embeds``, and its prefill then leaves the cache without
+the ``ck``/``cv`` that decode reads.
 
 Entry points:
   init_params(cfg, gen)                        → params
@@ -224,19 +226,28 @@ def _image_embeds(cfg: ArchConfig,
 
 
 # ============================================================ forward
+def _under_func_transform() -> bool:
+    """Whether a ``torch.func`` transform (vmap, grad, ...) is active."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
 def forward(cfg: ArchConfig, params: Pytree,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Full-sequence forward → logits (B, S, V), or (B, S, n_cb·V) for
     codebook tokens (B, n_cb, S).  With ``cfg.remat`` and autograd on,
     each superblock keeps only its input and recomputes the rest in the
-    backward pass.  ``batch["image_embeds"]`` (B, n_patches, D), if given,
-    feeds the ``cross`` blocks."""
+    backward pass; under a ``torch.func`` transform (the vectorized
+    executor's ``vmap(grad_and_value(...))``) it does not remat, since
+    ``torch.func.grad`` cannot run checkpoint's saved-tensor hooks, and
+    recomputation changes memory, never values.  ``batch["image_embeds"]``
+    (B, n_patches, D), if given, feeds the ``cross`` blocks."""
     tokens = batch["tokens"]
     positions = _positions(tokens)
     image_embeds = _image_embeds(cfg, batch)
     x = _embed(cfg, params, tokens, dtype_of(cfg.dtype))
     shared = params.get("shared_attn")
-    remat = cfg.remat and torch.is_grad_enabled()
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and not _under_func_transform())
     for params_i in _unstack(params["blocks"], cfg.n_super):
         if remat:
             x = checkpoint(_superblock, params_i, shared, x, cfg, positions,

@@ -587,3 +587,46 @@ def test_mamba_train_step_on_card_as_on_cpu():
                 w = w[part]
             rel = float((t.cpu() - w).norm() / w.norm().clamp(min=1e-30))
             assert rel <= 1e-4, (key, path, rel)
+
+
+@pytest.mark.cuda
+def test_executor_step_of_mamba_on_card_matches_plain_scan(monkeypatch):
+    """One vectorized-executor step of reduced mamba2-130m (fp32, 4
+    clients, federated_pretrain's ModelDef) on the card: the scan in the
+    kernel under its vmap rule, one folded launch a layer, against the
+    same step with the scan in ssd_scan_plain under vmap: the losses
+    within 1e-5 relative and every leaf's grads within 1e-4 relative L2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_map, tree_paths
+    from repro_torch.examples import federated_pretrain
+    from repro_torch.fl.executor import VectorizedExecutor
+    from repro_torch.fl.tasks import ClassificationTask
+    from repro_torch.models import ssm
+
+    cfg = get_config("mamba2-130m").reduced().replace(vocab=256)
+    task = ClassificationTask(federated_pretrain.cfg_as_model(cfg, "lm"),
+                              federated_pretrain.TASK, device="cuda")
+    params = task.init_params(0)
+    K = 4
+    stacked = tree_map(lambda t: t.unsqueeze(0).expand(K, *t.shape).clone(),
+                       params)
+    g = torch.Generator("cuda").manual_seed(3)
+    x = torch.randint(0, 256, (K, 16, 32), generator=g, device="cuda")
+    y = torch.randint(0, 256, (K, 16), generator=g, device="cuda")
+    m = torch.ones((K, 16), device="cuda")
+    step = vmap(grad_and_value(VectorizedExecutor(task)._masked_loss))
+    before = ssd_scan.launches
+    grads, losses = step(stacked, x, y, m)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + cfg.n_layers
+    monkeypatch.setattr(ssm, "ssd_scan", ssd_scan_plain)
+    want_grads, want_losses = step(stacked, x, y, m)
+    assert ssd_scan.launches == before + cfg.n_layers
+    torch.testing.assert_close(losses, want_losses, rtol=1e-5, atol=0)
+    for (path, t), (_, w) in zip(tree_paths(grads), tree_paths(want_grads)):
+        rel = float((t - w).norm() / w.norm().clamp(min=1e-30))
+        assert rel <= 1e-4, (path, rel)

@@ -34,6 +34,7 @@ from repro.fl.tasks import TaskConfig as JaxTaskConfig
 from repro.models.small import make_cnn as jax_make_cnn
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core import compress as port_compress
+from repro_torch.core import reset_transfer_stats, transfer_stats
 from repro_torch.core.flatten import flatten_params, tree_leaves
 from repro_torch.fl import executor, experiment
 from repro_torch.fl.client import ClientPool
@@ -173,10 +174,11 @@ def test_run_group_batch_rows_are_flattened_trees(setup):
     datasets, seeds = _group(pool, cids)
     ex = executor.VectorizedExecutor(task)
     trees = ex.run_group(cids, datasets, params, 0.0, seeds)
+    reset_transfer_stats()
     batch = ex.run_group_batch(cids, datasets, params, 0.0, seeds)
     assert batch.num_clients == 4
     assert batch.num_params == flatten_params(params)[0].numel()
-    assert batch.materialized_rows == 0
+    assert transfer_stats()["materialize_rows"] == 0
     for i, cid in enumerate(cids):
         flat = flatten_params(trees[cid][0])[0]
         assert torch.equal(batch.row(i), flat)
@@ -184,7 +186,9 @@ def test_run_group_batch_rows_are_flattened_trees(setup):
                         tree_leaves(trees[cid][0])):
             assert torch.equal(a, b)
         assert batch.loss(i) == trees[cid][1]
-    assert batch.materialized_rows == 4 and batch.loss_syncs == 1
+    stats = transfer_stats()
+    assert stats["materialize_rows"] == 4 and stats["loss_syncs"] == 1
+    assert stats["materialize_bytes"] == 4 * 4 * batch.num_params
     assert torch.equal(batch.gather([2, 0]),
                        torch.stack([batch.row(2), batch.row(0)]))
     batch.set_row(1, torch.zeros(batch.num_params))

@@ -28,7 +28,14 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.faas.profiles, repro_torch.checkpoint.checkpoint, "
             "repro_torch.fl.checkpointing, repro_torch.launch.pretrain, "
             "repro_torch.optim.optimizers, repro_torch.kernels.ssd_scan, "
-            "repro_torch.models.moe, repro_torch.sharding.flash_decode\n"
+            "repro_torch.models.moe, repro_torch.sharding.flash_decode, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.straggler_study, "
+            "repro_torch.examples.scheduler_study, "
+            "repro_torch.examples.async_study, "
+            "repro_torch.examples.crash_recovery_smoke, "
+            "repro_torch.examples.federated_pretrain, "
+            "repro_torch.examples.serve_decode\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]\n"
@@ -56,7 +63,9 @@ def test_no_source_imports_jax_or_repro():
                    "launch/mesh.py", "sharding/rules.py", "faas/fleet.py",
                    "faas/profiles.py", "checkpoint/checkpoint.py",
                    "fl/checkpointing.py", "launch/pretrain.py",
-                   "models/moe.py", "sharding/flash_decode.py"):
+                   "models/moe.py", "sharding/flash_decode.py",
+                   "examples/quickstart.py", "examples/federated_pretrain.py",
+                   "examples/serve_decode.py"):
         assert PORT / module in files, module
     for path in files:
         for name in _imported_modules(path):
@@ -91,3 +100,104 @@ def test_entry_points_need_cuda_unless_told_cpu():
                                    "PATH": "/usr/bin:/bin"})
     assert pretrain.returncode != 0
     assert "CUDA is not available" in pretrain.stderr
+
+
+# what a reference package's __init__ exports and the port leaves out, why
+REFERENCE_PACKAGES = ("analysis", "checkpoint", "configs", "core", "data",
+                      "faas", "fl", "kernels", "launch", "models", "optim",
+                      "sharding")
+NOT_PORTED_PACKAGES = {
+    "analysis": "static analysis of the port waits for ROADMAP 1.7"}
+NOT_PORTED = {
+    "kernels": {"ref": "the *_plain version beside each kernel plays "
+                       "kernels/ref.py's role"},
+    "sharding": dict.fromkeys(
+        ("DEFAULT_OPTIONS", "ShardingOptions", "batch_specs", "cache_specs",
+         "data_axes", "logits_spec", "opt_specs", "param_spec_for",
+         "param_specs", "to_named"),
+        "the large-model sharding rules wait for ROADMAP 1.9"),
+}
+
+
+def test_reference_package_list_is_complete():
+    assert tuple(sorted(p.name for p in (REPO / "src" / "repro").iterdir()
+                        if (p / "__init__.py").exists())) == REFERENCE_PACKAGES
+
+
+@pytest.mark.parametrize("package", REFERENCE_PACKAGES)
+def test_port_exports_what_the_reference_exports(package):
+    """Every name a reference package exports (its ``__all__``, else the
+    public names its ``__init__`` binds) exists in the port's package, or is listed above with
+    its reason; a listed name the port has gained must leave the list."""
+    import importlib
+    import types
+
+    reference = importlib.import_module(f"repro.{package}")
+    if package in NOT_PORTED_PACKAGES:
+        with pytest.raises(ImportError):
+            importlib.import_module(f"repro_torch.{package}")
+        return
+    ported = importlib.import_module(f"repro_torch.{package}")
+    # without __all__: the public names its __init__ binds (submodules
+    # that other imports loaded are not exports)
+    names = getattr(reference, "__all__", None) or [
+        n for n, v in vars(reference).items()
+        if not n.startswith("_") and not isinstance(v, types.ModuleType)]
+    skipped = NOT_PORTED.get(package, {})
+    assert not [n for n in names if not hasattr(ported, n)
+                and n not in skipped]
+    assert not [n for n in skipped if hasattr(ported, n)]
+    assert set(skipped) <= set(names)
+
+
+def test_transfer_counters_count_as_the_reference_does():
+    """The same executor round in both packages: packaging rebuilds no
+    tree, each update's params rebuild one row of P fp32 values, and the
+    loss vector crosses to the host once."""
+    import jax
+    import numpy as np
+    from repro.core import device_batch as jax_batch
+    from repro.data import make_image_classification as jax_make_data
+    from repro.data.synthetic import ArrayDataset
+    from repro.fl.client import ClientPool as JaxPool
+    from repro.fl.tasks import ClassificationTask as JaxTask
+    from repro.fl.tasks import TaskConfig as JaxTaskConfig
+    from repro.models.small import make_cnn as jax_make_cnn
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import (pipeline_enabled, reset_transfer_stats,
+                                  transfer_stats)
+    from repro_torch.fl.client import ClientPool
+
+    full = jax_make_data(60, 14, 3, seed=0)
+    parts = {f"c{i}": ArrayDataset(full.x[i * 20:(i + 1) * 20],
+                                   full.y[i * 20:(i + 1) * 20])
+             for i in range(3)}
+    cids = list(parts)
+    task_cfg = dict(epochs=1, batch_size=8, per_sample_time_s=0.05)
+    jax_task = JaxTask(jax_make_cnn(14, 1, 3, 8), JaxTaskConfig(**task_cfg))
+    init = jax.tree_util.tree_map(np.asarray, jax_task.init_params(0))
+    task = ClassificationTask(make_cnn(14, 1, 3, 8), TaskConfig(**task_cfg),
+                              device="cpu")
+    counts = []
+    for pool, params, reset, stats in (
+            (JaxPool(jax_task, parts, None, seed=0), init,
+             jax_batch.reset_transfer_stats, jax_batch.transfer_stats),
+            (ClientPool(task, parts, None, seed=0),
+             params_from_numpy(init, "cpu"), reset_transfer_stats,
+             transfer_stats)):
+        reset()
+        updates = [u for u, _ in
+                   pool.batch_work_fn(cids, params, 0).values()]
+        seen = [stats()]
+        for u in updates:
+            u.params                              # rebuilds the row's tree
+        batch = updates[0].batch
+        seen.append(stats())
+        for i in range(len(cids)):
+            batch.loss(i)
+        seen.append(stats())
+        counts.append(seen)
+    assert pipeline_enabled()
+    assert counts[1] == counts[0]
+    assert counts[0][1]["materialize_rows"] == len(cids)
+    assert counts[0][2]["loss_syncs"] == 1

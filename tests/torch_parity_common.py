@@ -11,6 +11,11 @@ example makes them), and its cross blocks' ``xgate`` is set to XGATE in
 the params' numpy tree before either package sees it: init makes it 0,
 and tanh(0) = 0 would hide the whole cross path.
 """
+import importlib.util
+import re
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -257,3 +262,78 @@ def check_loss_and_grads(arch, efficient_ce):
     routers = [path for path, _ in tree_paths(grads)
                if cfg.top_k == 1 and path[-1] == "router"]
     assert_trees_rel_l2(grads, want_grads, GRAD_REL_L2, zero_leaves=routers)
+
+
+# ============================================================ example CLIs
+# The JAX package's examples/*.py and their ports in repro_torch.examples
+# run in this process at small settings through their own flags, the
+# port's on the CPU.  The port's models draw their init params from the
+# JAX package's init (``with_jax_init``), so the two runs train the same
+# model: their outputs agree line by line, every virtual column (EUR,
+# duration, cost, bias, time-to-accuracy, aggregation counts) as text and
+# every accuracy within ACC_TOL (local Adam at ReLU margins, ROADMAP
+# Queue 3).
+REPO = Path(__file__).resolve().parents[1]
+ACC_TOL = 0.01
+
+
+def jax_example(name: str):
+    """The JAX package's ``examples/<name>.py``, loaded as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_example_{name}", REPO / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_main(monkeypatch, capsys, module, argv):
+    """(exit code, standard output) of ``module.main()`` under ``argv``."""
+    monkeypatch.setattr(sys, "argv", [module.__name__, *argv])
+    capsys.readouterr()
+    try:
+        rc = module.main() or 0
+    except SystemExit as stop:
+        rc = stop.code
+    return rc, capsys.readouterr().out
+
+
+def with_jax_init(jax_factory, port_factory):
+    """``port_factory`` whose ModelDefs' ``init(seed, device)`` return
+    ``jax_factory``'s same-argument ModelDef's ``init(PRNGKey(seed))``."""
+    def make(*args, **kwargs):
+        jax_model = jax_factory(*args, **kwargs)
+
+        def init(seed=0, device=None):
+            return params_from_numpy(
+                np_tree(jax_model.init(jax.random.PRNGKey(seed))),
+                device or "cpu")
+        return port_factory(*args, **kwargs)._replace(init=init)
+    return make
+
+
+def split_accuracies(text: str, patterns):
+    """``text`` with each first group of ``patterns`` (regexes, one group:
+    an accuracy) replaced by ``<acc>``, and the accuracies in order."""
+    found = []
+
+    def take(match):
+        found.append(float(match.group(1)))
+        start, end = match.span(1)
+        whole = match.group(0)
+        base = match.start(0)
+        return whole[:start - base] + "<acc>" + whole[end - base:]
+    for pattern in patterns:
+        text = re.sub(pattern, take, text, flags=re.MULTILINE)
+    return text, found
+
+
+def assert_outputs_agree(jax_out: str, port_out: str, patterns) -> float:
+    """The two outputs equal line by line but for their accuracies, which
+    agree within ACC_TOL; returns the largest accuracy gap."""
+    jax_text, jax_acc = split_accuracies(jax_out, patterns)
+    port_text, port_acc = split_accuracies(port_out, patterns)
+    assert port_text.splitlines() == jax_text.splitlines()
+    assert len(port_acc) == len(jax_acc) and jax_acc
+    gap = max(abs(a - b) for a, b in zip(port_acc, jax_acc))
+    assert gap <= ACC_TOL, (port_acc, jax_acc)
+    return gap
