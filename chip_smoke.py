@@ -137,7 +137,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    activations, and every Mamba layer's scan-only params (A_log, dt_bias,
    conv_w's and in_proj's x/B/C/dt parts) must get non-zero grads on the
    kernel path.
-5. A JSON line with every kernel's numbers, then, as the last line,
+5. The dry run against the card (run_dry_run): launch/dryrun.py's
+   prediction of each run, made on fake tensors on the host's CPU after
+   the FL phases and before the runs it predicts, at the run's exact
+   config and shape on a one-card mesh, is printed and held against what
+   the card measured: the three train runs above, gemma2-2b's prefill of
+   phase 3 (one prefill alone on the kernel path, and one with attention
+   in the kernel's plain version, the aten ops the fake run counts), and
+   two new train runs at full width cut for one card,
+   llama-3.2-vision-11b (fp32 params, 5 layers: one cross block;
+   1 × 2048 tokens, 1024 stub patch embeddings) and
+   llama4-maverick-400b-a17b (bf16 params, 2 layers: one dense, one MoE;
+   top-1; the expert count the largest whose predicted peak stays under
+   DRY_PEAK_BUDGET, chosen by the dry run before the card runs), 20 Adam
+   steps each, losses finite and falling, no kernel launched (attention
+   under autograd runs its plain version).  Gates: the argument bytes
+   equal the bytes of the state and batch the run holds; the measured
+   step time is at least the prediction's compute_s; the predicted peak
+   over torch.cuda.max_memory_allocated() lies in DRY_PEAK_RATIO; in a
+   run that launches no kernel, the predicted FLOPs equal
+   FlopCounterMode's over one extra untimed step on the card within
+   DRY_FLOP_RTOL.  Where a step launches ssd_scan or flash_attention the
+   card's count misses the kernels' work: the gap is printed.
+6. A JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
 It needs a card: without CUDA, or without the rest of the repository
@@ -333,6 +355,26 @@ FLASH_DECODE_TOL = 2e-5
 FP32_FLOPS = {"sxm": 67e12, "pcie": 51e12}
 BF16_FLOPS = {"sxm": 989e12, "pcie": 756e12}     # dense tensor cores
 MEM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
+# the dry run against the card: two more train runs at full width, cut for
+# one card (arch, batch, sequence, Adam steps, config overrides); the MoE's
+# expert count is the largest of DRY_MOE_EXPERTS whose predicted peak stays
+# under DRY_PEAK_BUDGET bytes (launch/dryrun.predict, before the card runs)
+DRY_TRAIN_RUNS = (("llama-3.2-vision-11b", 1, 2048, 20, dict(n_layers=5)),
+                  ("llama4-maverick-400b-a17b", 1, 2048, 20,
+                   dict(n_layers=2, param_dtype="bfloat16")))
+DRY_MOE_EXPERTS = (128, 64, 32, 16, 8, 4, 2, 1)
+# an 80 GB card holds 85.0e9 bytes: 10e9 left for the CUDA context, the
+# allocator's rounding and what earlier phases keep
+DRY_PEAK_BUDGET = 75e9
+# predicted peak (argument bytes + the fake step's peak live bytes) over
+# torch.cuda.max_memory_allocated(): the allocator's rounding, cuBLAS's
+# workspaces and tensors left from earlier phases stand between them
+# (0.990-1.000 measured on an H100, PERF.md); a wrong reckoning of the
+# optimizer's bytes (16 against 28 a param) is 1.75x
+DRY_PEAK_RATIO = (0.9, 1.1)
+# fake against the card's FlopCounterMode in a run that launches no kernel:
+# the same aten ops on the same shapes
+DRY_FLOP_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -2219,6 +2261,38 @@ def _check_generation(arch: str, run, logits_shape: tuple) -> None:
                            f"vocabulary")
 
 
+def _lone_prefill(cfg, params, batch) -> dict:
+    """One prefill alone, for the dry run: its time, launches and peak
+    bytes (the peak of the block less what else the process holds beside
+    ``params`` and ``batch``, the bytes the prefill holds), then
+    FlopCounterMode over one more (untimed; a kernel's work is not
+    seen)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch.cost_analysis import tree_bytes
+    from repro_torch.models import prefill
+
+    held = tree_bytes(params) + tree_bytes(batch)
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    result = prefill(cfg, params, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - other
+    launches = {k.__name__: k.launches for k in KERNELS}
+    del result
+    with FlopCounterMode(display=False) as counter:
+        prefill(cfg, params, batch)
+    return {"ms_per_step": 1e3 * step_s, "launches": launches,
+            "held_bytes": held, "other_gb": other / 1e9,
+            "peak_gb": peak / 1e9,
+            "card_flops": float(counter.get_total_flops())}
+
+
 def run_serve(flash_row: dict) -> dict:
     """Gemma 2 (2B) at full width and depth, random weights: prefill
     SERVE_B prompts of SERVE_S tokens through the flash_attention kernel
@@ -2253,9 +2327,10 @@ def run_serve(flash_row: dict) -> dict:
     if n_params != param_count(cfg):
         raise RuntimeError(f"{SERVE_ARCH}: {n_params} params, not "
                            f"{param_count(cfg)}")
+    # int32 tokens, as the dry run's batch holds them (launch/specs.py)
     prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), device="cuda",
                            generator=torch.Generator(device="cuda")
-                           .manual_seed(1))
+                           .manual_seed(1)).int()
     batch = {"tokens": prompt}
     generate(cfg, params, prompt[:, :256], 2)          # warm-up
     torch.cuda.synchronize()
@@ -2310,6 +2385,12 @@ def run_serve(flash_row: dict) -> dict:
     out["fp32_2layer_max_abs_diff"] = _max_abs_diff(a, b)
     del a, b
     out["decode_profile"] = profile_decode(cfg, params, prompt)
+    # for the dry run: one prefill alone on the kernel path, and one with
+    # attention in the kernel's plain version, the aten ops the dry run
+    # counts
+    out["lone_prefill"] = _lone_prefill(cfg, params, batch)
+    with _attention_in_plain_version():
+        out["lone_prefill_plain_version"] = _lone_prefill(cfg, params, batch)
     log(json.dumps({"serve": out}))
 
     _serve_gates(SERVE_ARCH, out, vs_fp32=True)
@@ -2872,7 +2953,9 @@ def run_zoo(part: str) -> dict:
 # ------------------------------------------------------------ training
 def _lm_batches(cfg, batch: int, S: int, steps: int) -> list:
     """launch/pretrain.py's data: make_token_lm's stream, ``batch`` rows a
-    step (one stream a codebook), on the card."""
+    step (one stream a codebook), on the card; a VLM's batches also carry
+    stub image embeddings (normal × 0.1 in bf16, as launch/specs.py makes
+    them)."""
     import numpy as np
 
     from repro_torch.data.synthetic import make_token_lm
@@ -2881,11 +2964,16 @@ def _lm_batches(cfg, batch: int, S: int, steps: int) -> list:
     data = make_token_lm(steps * rows * (S + 1) * 2, vocab=cfg.vocab,
                          seq_len=S, seed=0)
     shape = (batch, cfg.n_codebooks, S) if cfg.n_codebooks else (batch, S)
+    gen = torch.Generator(device="cuda").manual_seed(2)
     out = []
     for step in range(steps):
         idx = (np.arange(rows) + step * rows) % data.x.shape[0]
         out.append({k: torch.from_numpy(a[idx].reshape(shape)).cuda()
                     for k, a in (("tokens", data.x), ("labels", data.y))})
+        if cfg.n_patches:
+            out[-1]["image_embeds"] = (0.1 * torch.randn(
+                (batch, cfg.n_patches, cfg.d_model), generator=gen,
+                device="cuda")).bfloat16()
     return out
 
 
@@ -3048,30 +3136,48 @@ def check_train_grads(cfg, params, batch, label: str) -> dict:
     return out
 
 
-def run_train(arch: str, batch: int, S: int, steps: int, part: str,
-              grad_checks=("bfloat16",)) -> dict:
-    """``steps`` Adam steps of ``arch`` at full width and depth through
-    make_train_step on launch/pretrain.py's data (the main path of
-    training), with the launch counts set to 0 just before and read just
-    after: every step's loss finite and, over 20 steps, the mean of the
-    last 5 below that of the first 5.  Before it, check_train_grads on the
-    first batch for each dtype of ``grad_checks``; after it, one more step
-    under torch.profiler."""
+def train_config(arch: str, overrides=None):
+    """The train runs' config: ``arch`` at full width with ``overrides``
+    (a depth or expert count cut for one card), lr TRAIN_LR,
+    efficient_ce."""
     from repro_torch.configs import get_config
+
+    return get_config(arch).replace(learning_rate=TRAIN_LR,
+                                    efficient_ce=True, **(overrides or {}))
+
+
+def run_train(arch: str, batch: int, S: int, steps: int, part: str,
+              grad_checks=("bfloat16",), overrides=None) -> dict:
+    """``steps`` Adam steps of ``arch`` at full width (and full depth
+    unless ``overrides`` cut it) through make_train_step on
+    launch/pretrain.py's data (the main path of training), with the launch
+    counts set to 0 just before and read just after: every step's loss
+    finite and, over 10 steps or more, the mean of the last 5 below that
+    of the first 5.  Before it, check_train_grads on the first batch for
+    each dtype of ``grad_checks``; after it, one more step under
+    FlopCounterMode (untimed: the card's count for the dry run) and one
+    under torch.profiler.  Records the bytes of the state and of one batch
+    the run holds, for the dry run's argument bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
     from repro_torch.core.flatten import tree_leaves
     from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.launch.cost_analysis import tree_bytes
     from repro_torch.models import make_train_step
 
-    cfg = get_config(arch).replace(learning_rate=TRAIN_LR, efficient_ce=True)
+    cfg = train_config(arch, overrides)
     if not cfg.remat:
         raise RuntimeError(f"{arch}: the full config trains with remat")
     train_step, init_state = make_train_step(cfg)
+    torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     state = init_state(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
     batches = _lm_batches(cfg, batch, S, steps)
+    held_bytes = tree_bytes(state) + tree_bytes(batches[0])
     grads = {}
     for dtype in grad_checks:
         grads[dtype] = check_train_grads(
@@ -3097,6 +3203,9 @@ def run_train(arch: str, batch: int, S: int, steps: int, part: str,
            for k in launches):
         raise RuntimeError(f"{arch} train: launches {launches}, want "
                            f"{want_ssd} ssd_scan and no other")
+    with FlopCounterMode(display=False) as counter:
+        state, _ = train_step(state, batches[0])
+    card_flops = float(counter.get_total_flops())
     state, profile = _profile_train_step(train_step, state, batches[0])
     del state
     torch.cuda.empty_cache()
@@ -3108,6 +3217,9 @@ def run_train(arch: str, batch: int, S: int, steps: int, part: str,
     out = {
         "run": f"{arch} train", "arch": arch, "batch": batch, "seq": S,
         "steps": steps, "lr": TRAIN_LR, "params": n_params,
+        "overrides": overrides or {}, "held_bytes": held_bytes,
+        "allocated_before_gb": allocated_before / 1e9,
+        "card_flops": card_flops,
         "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
         "remat": cfg.remat, "efficient_ce": cfg.efficient_ce,
         "init_s": init_s, "first_step_ms": 1e3 * step_s[0],
@@ -3303,6 +3415,133 @@ def run_training(gen, part: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ dry run
+def _prediction(cfg, batch: int, S: int, kind: str) -> dict:
+    """launch/dryrun.predict of ``cfg`` at (batch, S) on one card's mesh
+    (data 1, model 1), on fake tensors on the host's CPU: the numbers this
+    phase holds against the card."""
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.dryrun import predict
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rec = predict(cfg, InputShape(f"{kind} {batch}x{S}", S, batch, kind),
+                  make_host_mesh(device="cpu"))
+    g, roof = rec["global"], rec["roofline"]
+    return {"argument_bytes": g["argument_bytes"], "flops": g["flops"],
+            "bytes_accessed": g["bytes_accessed"],
+            "peak_bytes": g["argument_bytes"] + g["peak_live_bytes"],
+            "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+            "dominant": roof["dominant"], "trace_s": rec["trace_s"]}
+
+
+def predict_runs() -> dict:
+    """The dry run's prediction of each run phase 5 holds, on the host's
+    CPU before the runs start: the train runs of TRAIN_RUNS and
+    DRY_TRAIN_RUNS and gemma2-2b's prefill, each at its exact config and
+    shape.  For a MoE run it first picks the expert
+    count: the largest of DRY_MOE_EXPERTS whose predicted peak stays under
+    DRY_PEAK_BUDGET (a count whose state and batch alone exceed it is not
+    traced)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.cost_analysis import tree_bytes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import build_step
+
+    runs, trials, overrides = {}, [], {}
+    for arch, batch, S, _ in TRAIN_RUNS:
+        runs[f"{arch} train"] = _prediction(train_config(arch), batch, S,
+                                            "train")
+    runs[f"{SERVE_ARCH} prefill"] = _prediction(
+        get_config(SERVE_ARCH).replace(use_pallas_attention=True), SERVE_B,
+        SERVE_S, "prefill")
+    # on fake CPU tensors the wrapper runs the plain version: one prediction
+    # for both of the card's prefills
+    runs[f"{SERVE_ARCH} prefill, plain version"] = runs[
+        f"{SERVE_ARCH} prefill"]
+    for arch, batch, S, _, cut in DRY_TRAIN_RUNS:
+        if not train_config(arch).n_experts:
+            runs[f"{arch} train"] = _prediction(train_config(arch, cut),
+                                                batch, S, "train")
+            overrides[arch] = cut
+            continue
+        for n in DRY_MOE_EXPERTS:
+            cfg = train_config(arch, dict(cut, n_experts=n))
+            if cfg.top_k != 1:
+                raise RuntimeError(f"{arch}: top-{cfg.top_k}, want top-1")
+            step = build_step(cfg, InputShape("probe", S, batch, "train"),
+                              make_host_mesh(device="cpu"))
+            held = tree_bytes(step.args)
+            del step
+            if held >= DRY_PEAK_BUDGET:
+                trials.append({"experts": n, "argument_bytes": held})
+                continue
+            pred = _prediction(cfg, batch, S, "train")
+            trials.append({"experts": n, **pred})
+            if pred["peak_bytes"] < DRY_PEAK_BUDGET:
+                runs[f"{arch} train"] = pred
+                overrides[arch] = dict(cut, n_experts=n)
+                break
+        else:
+            raise RuntimeError(f"{arch}: no expert count of "
+                               f"{DRY_MOE_EXPERTS} fits {DRY_PEAK_BUDGET}")
+    return {"runs": runs, "overrides": overrides, "expert_trials": trials}
+
+
+def run_dry_run(predicted: dict, serve: dict, training: dict,
+                part: str) -> dict:
+    """Phase 5: the two DRY_TRAIN_RUNS at the cuts the dry run chose, then
+    every predicted run against what the card measured (module docstring,
+    phase 5)."""
+    runs = {f"{r['arch']} train": r for r in training["train"]}
+    runs[f"{SERVE_ARCH} prefill"] = serve["lone_prefill"]
+    runs[f"{SERVE_ARCH} prefill, plain version"] = serve[
+        "lone_prefill_plain_version"]
+    for arch, batch, S, steps, _ in DRY_TRAIN_RUNS:
+        torch.cuda.empty_cache()
+        runs[f"{arch} train"] = run_train(
+            arch, batch, S, steps, part, grad_checks=(),
+            overrides=predicted["overrides"][arch])
+        log(f"{arch} train done at {time.perf_counter() - T0:.1f} s")
+    rows, failures = [], []
+    for label, pred in predicted["runs"].items():
+        got = runs[label]
+        step_s = got["ms_per_step"] / 1e3
+        peak = got["peak_gb"] * 1e9
+        kernel_free = not any(got["launches"].values())
+        row = {"run": label, "launches": got["launches"],
+               "argument_bytes": pred["argument_bytes"],
+               "held_bytes": got["held_bytes"],
+               "flops": pred["flops"], "card_flops": got["card_flops"],
+               "flop_gap": (pred["flops"] - got["card_flops"])
+               / pred["flops"],
+               "compute_s": pred["compute_s"], "memory_s": pred["memory_s"],
+               "dominant": pred["dominant"], "step_s": step_s,
+               "peak_bytes": pred["peak_bytes"], "card_peak_bytes": peak,
+               "peak_ratio": pred["peak_bytes"] / peak,
+               "trace_s": pred["trace_s"]}
+        rows.append(row)
+        if row["argument_bytes"] != row["held_bytes"]:
+            failures.append(f"{label}: argument bytes {row['argument_bytes']}"
+                            f" != the {row['held_bytes']} the run holds")
+        if not step_s >= row["compute_s"]:
+            failures.append(f"{label}: {step_s:.4g} s a step, below "
+                            f"compute_s {row['compute_s']:.4g}")
+        lo, hi = DRY_PEAK_RATIO
+        if not lo <= row["peak_ratio"] <= hi:
+            failures.append(f"{label}: predicted / measured peak "
+                            f"{row['peak_ratio']:.4g} outside {lo}-{hi}")
+        if kernel_free and not abs(row["flop_gap"]) <= DRY_FLOP_RTOL:
+            failures.append(f"{label}: FLOPs {row['flops']:.6g} fake, "
+                            f"{row['card_flops']:.6g} on the card")
+    out = {"rows": rows, "overrides": predicted["overrides"],
+           "expert_trials": predicted["expert_trials"]}
+    log(json.dumps({"dry_run": out}))
+    if failures:
+        raise RuntimeError("dry run against the card: " + "; ".join(failures))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3396,6 +3635,9 @@ def main() -> int:
     federated_ssm = run_federated_ssm(gen, part)
     run_example_clis()
     log(f"federated ssm phase done at {time.perf_counter() - T0:.1f} s")
+    predicted = predict_runs()
+    log(json.dumps({"dry_run_predictions": predicted}))
+    log(f"dry run predictions done at {time.perf_counter() - T0:.1f} s")
     serve = run_serve(rows[-2])
     log(f"{SERVE_ARCH} serve done at {time.perf_counter() - T0:.1f} s")
     ssm_serves = []
@@ -3405,6 +3647,8 @@ def main() -> int:
     zoo = run_zoo(part)
     training = run_training(gen, part)
     log(f"train phase done at {time.perf_counter() - T0:.1f} s")
+    run_dry_run(predicted, serve, training, part)
+    log(f"dry run phase done at {time.perf_counter() - T0:.1f} s")
     # which run's launches each kernel's row reports
     runs = {"fed_agg": fedlesscan, "fed_agg_apply": fedadam,
             "fed_agg_sharded": sharded,

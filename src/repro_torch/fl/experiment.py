@@ -15,9 +15,9 @@ over meshes of the cards (launch/mesh.py), clamped to how many exist.
 ``platforms`` spreads the clients over a fleet of simulated providers
 (faas/profiles.py); ``checkpoint_dir`` / ``resume_from`` write and
 resume full-fidelity checkpoints in the JAX package's file format
-(fl/checkpointing.py).  The JAX package's compilation cache has no
-counterpart: ``compilation_cache_dir`` raises NotImplementedError naming
-its ROADMAP queue item.
+(fl/checkpointing.py).  ``compilation_cache_dir`` makes that directory the
+hand-written kernels' build cache (launch/compile_cache.py), where the JAX
+package points its compilation cache.
 """
 from __future__ import annotations
 
@@ -137,8 +137,8 @@ class ExperimentConfig:
     # run the executor once on round 0's cohort before the timed loop, so
     # first-call costs (cuDNN's algorithm choice) fall outside round 0
     executor_warmup: bool = False
-    # the JAX package's persistent compilation cache; no counterpart here
-    # (raises NotImplementedError)
+    # the kernels' build directory (launch/compile_cache.py), where the
+    # JAX package points its persistent compilation cache
     compilation_cache_dir: Optional[str] = None
 
 
@@ -184,10 +184,9 @@ def run_experiment(task: ClassificationTask,
     if task.device != dev:
         raise ValueError(f"the task runs on {task.device}, the experiment "
                          f"on {dev}")
-    if config.compilation_cache_dir is not None:
-        raise NotImplementedError(
-            "compilation_cache_dir (JAX compile cache, ROADMAP Queue 1.9) "
-            "is not ported to the PyTorch package yet")
+    if config.compilation_cache_dir:
+        from ..launch.compile_cache import enable_compilation_cache
+        enable_compilation_cache(config.compilation_cache_dir)
     history = ClientHistoryDB()
     history.ensure(train_partitions.keys())
 

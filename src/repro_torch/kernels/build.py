@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface.  The file name carries a hash of the
 source, the headers beside it (``csrc/*.cuh``) and the flags, so an edited
-source or header builds anew and an unchanged one is reused.  Libraries land in ``src/repro_torch/_build/`` (git-ignored).
-Nothing is built or loaded when this module is imported.
+source or header builds anew and an unchanged one is reused.  Libraries land
+in ``src/repro_torch/_build/`` (git-ignored), or in the directory that
+``set_build_dir`` (launch/compile_cache.py) names.  Nothing is built or
+loaded when this module is imported.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "_build"
+DEFAULT_BUILD_DIR = PACKAGE_DIR / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -39,6 +42,13 @@ def nvcc_path() -> str:
         return str(candidate)
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def set_build_dir(path: Path) -> None:
+    """Build and look up the libraries in ``path`` from now on, for the
+    whole process (a library already loaded stays loaded)."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def library_path(name: str) -> Path:

@@ -14,8 +14,15 @@ mesh is no mesh (fl/executor.py and the ``*_sharded`` kernels take the
 unsharded path).  The ``Mesh`` constructor itself accepts a device list
 with repeats, such as ``(cpu, cpu)`` or ``(cuda:0, cuda:0)``: the
 counterpart of ``--xla_force_host_platform_device_count``, which runs
-the sharded code on one device.  Production TPU pod meshes are not
-ported.
+the sharded code on one device.
+
+``make_production_mesh`` gives the reference's production layout, (16, 16)
+over ("data", "model") or (2, 16, 16) over ("pod", "data", "model"), as an
+``AbstractMesh``: axis names and sizes with no devices, the counterpart of
+``jax.sharding.AbstractMesh``.  The sharding rules (sharding/rules.py)
+read only a mesh's ``.shape`` and ``.size``, so the dry run
+(launch/dryrun.py) works out per-device shapes for 256 or 512 cards that
+nobody holds.
 """
 from __future__ import annotations
 
@@ -59,6 +66,32 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({list(map(str, self.devices))}, {self.shape})"
+
+
+class AbstractMesh:
+    """Named axis sizes with no devices (row-major over ``axes``)."""
+
+    def __init__(self, axes: Sequence[Tuple[str, int]]):
+        self.shape: Dict[str, int] = {name: int(size) for name, size in axes}
+        unknown = [a for a in self.shape if a not in MESH_AXES]
+        if unknown:
+            raise ValueError(f"undeclared mesh axes {unknown}; declared: "
+                             f"{MESH_AXES}")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The production mesh: (16, 16) over ("data", "model"), or
+    (2, 16, 16) over ("pod", "data", "model") with ``multi_pod``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return AbstractMesh(tuple(zip(axes, shape)))
 
 
 def _devices(n: int, device: DeviceLike) -> Tuple[torch.device, ...]:

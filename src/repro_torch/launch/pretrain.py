@@ -14,8 +14,11 @@ version's).  The reduced config is the default, as in the reference.
 
 Codebook configs (musicgen-medium) take one stream a codebook: batch row
 i, codebook c reads sequence (i·n_cb + c) of the stream.  The reference's
-production mesh (``--production-mesh``: sharded param, optimizer and
-batch specs) is not ported and raises ``NotImplementedError``.
+``--production-mesh`` (a step jitted with sharded param, optimizer and
+batch specs over 256 devices) raises ``NotImplementedError``: the specs
+are ported (sharding/rules.py) and the dry run predicts that mesh
+(launch/dryrun.py), but this driver is one process with no SPMD
+partitioner, on one card.
 """
 from __future__ import annotations
 
@@ -45,15 +48,16 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the 16x16 mesh (not ported: raises)")
+                    help="the 16x16 mesh (raises: one process, one card)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh: the sharded param, optimizer and batch "
-            "specs (sharding/rules.py) are not ported to the PyTorch "
-            "package yet (ROADMAP Queue 1.9)")
+            "--production-mesh: training over the 16x16 mesh needs an "
+            "SPMD partitioner to place the sharded specs; this driver is "
+            "one process with none, on one card (ROADMAP Queue 1.9; "
+            "python -m repro_torch.launch.dryrun predicts that mesh)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

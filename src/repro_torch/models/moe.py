@@ -54,14 +54,16 @@ def _dispatch_combine(logits: torch.Tensor, top_k: int,
 
     Choice by choice, each token takes the next free slot of its expert
     (the occupancy runs on across choices); a token whose slot index
-    reaches ``capacity`` is dropped: its row stays zero."""
+    reaches ``capacity`` is dropped: its row stays zero.  A dropped token
+    writes a spare slot ``capacity`` that is cut off at the end, so every
+    shape is static (no host sync, and fake tensors trace it)."""
     g, E = logits.shape
     probs = torch.softmax(logits.float(), dim=-1)
     topv, topi = _top_k(probs, top_k)                      # (g, k)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
-    dispatch = torch.zeros((g, E, capacity), device=logits.device)
-    combine = torch.zeros((g, E, capacity), device=logits.device)
+    dispatch = torch.zeros((g, E, capacity + 1), device=logits.device)
+    combine = torch.zeros((g, E, capacity + 1), device=logits.device)
     occupancy = torch.zeros((E,), dtype=torch.int64, device=logits.device)
     rows = torch.arange(g, device=logits.device)
     for choice in range(top_k):
@@ -69,15 +71,13 @@ def _dispatch_combine(logits: torch.Tensor, top_k: int,
         mask_e = F.one_hot(e, E)                           # (g, E)
         pos = torch.cumsum(mask_e, dim=0) - 1 + occupancy[None, :]
         occupancy = occupancy + mask_e.sum(dim=0)
-        pos_tok = pos.gather(1, e[:, None])[:, 0]
-        keep = pos_tok < capacity
-        # one 1 a kept token: top_k's experts differ, so the choices of a
-        # token never share a slot, and these writes are the reference's
-        # sums of one-hot products
-        r, ek, ck = rows[keep], e[keep], pos_tok[keep]
-        dispatch[r, ek, ck] = 1.0
-        combine[r, ek, ck] = topv[keep, choice]
-    return dispatch, combine
+        slot = torch.clamp(pos.gather(1, e[:, None])[:, 0], max=capacity)
+        # one 1 a token and choice: top_k's experts differ, so the choices
+        # of a token never share a slot, and the kept writes are the
+        # reference's sums of one-hot products
+        dispatch[rows, e, slot] = 1.0
+        combine[rows, e, slot] = topv[:, choice]
+    return dispatch[..., :capacity], combine[..., :capacity]
 
 
 def _experts(p: Pytree, xg: torch.Tensor, dispatch: torch.Tensor,

@@ -1,5 +1,11 @@
-"""Mesh-axis names and the slicing rules of the sharded FL paths, and
-flash decoding over a sharded KV cache."""
+"""Mesh-axis names, the slicing rules of the sharded FL paths, the
+large-model sharding rules, and flash decoding over a sharded KV cache."""
 from .flash_decode import reference_decode_attention, sharded_decode_attention
+from .rules import (DEFAULT_OPTIONS, PartitionSpec, ShardingOptions,
+                    batch_specs, cache_specs, data_axes, logits_spec,
+                    opt_specs, param_spec_for, param_specs, shard_shape)
 
-__all__ = ["reference_decode_attention", "sharded_decode_attention"]
+__all__ = ["DEFAULT_OPTIONS", "PartitionSpec", "ShardingOptions",
+           "batch_specs", "cache_specs", "data_axes", "logits_spec",
+           "opt_specs", "param_spec_for", "param_specs", "shard_shape",
+           "reference_decode_attention", "sharded_decode_attention"]

@@ -1,21 +1,46 @@
-"""Mesh-axis vocabulary and the slicing rules of the sharded FL paths.
+"""Mesh-axis vocabulary, the slicing rules of the sharded FL paths, and
+the large-model sharding rules.
 
-The port's copy of what the FL path needs from the JAX package's
-sharding/rules.py: the declared axis names, ``merge_axes`` (the flat
-server merge splits its P dim over every axis of its mesh) and, standing
-in for ``cohort_spec()`` and ``merge_spec()``, ``shard_slices``: one
-contiguous equal slice of a dim per mesh device, in device order, for the
-vectorized executor's padded cohort dim K and the merge's padded P dim.
-The model-sharding rules of that module (FSDP/TP specs) are not ported.
+The port of the JAX package's sharding/rules.py.  The FL half: the
+declared axis names, ``merge_axes`` (the flat server merge splits its P
+dim over every axis of its mesh) and, standing in for ``cohort_spec()``
+and ``merge_spec()``, ``shard_slices``: one contiguous equal slice of a
+dim per mesh device, in device order, for the vectorized executor's
+padded cohort dim K and the merge's padded P dim.
+
+The large-model half (FSDP + TP, MaxText-flavoured), pure functions of
+key paths, shapes and a mesh's ``.shape`` (axis name → size):
+
+  * every weight gets a 'model' (tensor-parallel) dim — heads / ff /
+    experts / vocab — picked from an ordered candidate list, skipping
+    candidates whose size does not divide the mesh axis;
+  * a second dim is sharded over the data axes (FSDP): ('pod', 'data')
+    on the multi-pod mesh;
+  * batches shard their batch dim over the data axes;
+  * decode KV caches shard the sequence dim over 'model' (the flash-
+    decoding layout) and the batch over data when it divides.
+
+A dim that does not divide falls through to the next candidate or stays
+replicated.  A spec is a ``PartitionSpec``: a tuple with one entry a dim,
+``None``, an axis name or a tuple of names, equal to the JAX package's
+``PartitionSpec`` with the same entries.  The port has no SPMD
+partitioner, so nothing places a tensor by these specs: ``shard_shape``
+gives the per-device shape a spec implies, which the dry run
+(launch/dryrun.py) counts.  Path names are the nested dict keys of the
+port's trees, which keep the reference's keys (convert.py).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, List, Sequence, Tuple
+
+Pytree = Any
 
 # the declared mesh-axis names:
-#   pod / data / model : the JAX package's production mesh; data / model
-#                        also name the host mesh of the P-sharded merge
-#                        (make_host_mesh)
+#   pod / data / model : the production FSDP+TP mesh (launch/mesh.py
+#                        make_production_mesh); data / model also name the
+#                        host mesh of the P-sharded merge (make_host_mesh)
 #   clients            : the cohort (K) axis of the vectorized executor
 #                        (make_clients_mesh, fl/executor.py)
 CLIENT_AXIS = "clients"
@@ -41,3 +66,271 @@ def shard_slices(length: int, mesh) -> List[Tuple[object, slice]]:
     part = length // n
     return [(dev, slice(i * part, (i + 1) * part))
             for i, dev in enumerate(mesh.devices)]
+
+
+# ================================================== large-model rules
+class PartitionSpec(tuple):
+    """One entry a dim: ``None`` (replicated), an axis name, or a tuple
+    of axis names (the dim split over their product)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class ShardingOptions:
+    """Knobs of the sharding strategy (launch/variants.py).
+
+    use_model_axis   : False → pure data parallelism; params are only
+                       FSDP-sharded over the data axes (right for models
+                       whose optimizer state fits on one device).
+    attn_model       : False → attention projections are not model-sharded
+                       (archs with fewer heads than the model axis).
+    batch_over_model : also shard the batch dim over 'model' (pure-DP mode
+                       turns the whole mesh into one big data axis).
+    replicate_params : fully replicate parameters (pure DP for models that
+                       fit on one device).
+    """
+    use_model_axis: bool = True
+    attn_model: bool = True
+    batch_over_model: bool = False
+    replicate_params: bool = False
+
+
+DEFAULT_OPTIONS = ShardingOptions()
+
+
+def _axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, tuple):
+        return math.prod(mesh.shape[a] for a in axis)
+    return mesh.shape[axis]
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """The (outer) data-parallel axes: ('pod', 'data') when multi-pod."""
+    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def _pick_spec(shape: Sequence[int], mesh, model_cands: Sequence[int],
+               data_cands: Sequence[int],
+               model_axis: str = "model") -> PartitionSpec:
+    """Assign 'model' to the first divisible candidate dim (negative
+    indices from the end), then the FSDP axes to another dim."""
+    spec: list = [None] * len(shape)
+    msize = _axis_size(mesh, model_axis)
+    for d in model_cands:
+        i = d % len(shape)
+        if shape[i] > 0 and shape[i] % msize == 0 and spec[i] is None:
+            spec[i] = model_axis
+            break
+    daxes = data_axes(mesh)
+    dsize = _axis_size(mesh, daxes)
+    for d in data_cands:
+        i = d % len(shape)
+        if shape[i] > 0 and shape[i] % dsize == 0 and spec[i] is None:
+            spec[i] = daxes if len(daxes) > 1 else daxes[0]
+            break
+    return P(*spec)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    """A leaf's shape: a tensor's, or () for a host scalar (the port's
+    optimizer step count)."""
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def _map_with_path(fn: Callable[[Tuple[str, ...], Any], Any], tree,
+                   path: Tuple[str, ...] = ()):
+    """A tree shaped like ``tree`` whose leaves are ``fn(path, leaf)``;
+    dict keys (and list positions) make the path."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def leaves_with_path(tree, path: Tuple[str, ...] = ()):
+    """``(path, leaf)`` for each leaf of ``tree``, with the paths and in the
+    order of ``_map_with_path``; a ``PartitionSpec`` is a leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves_with_path(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)) and \
+            not isinstance(tree, PartitionSpec):
+        for i, v in enumerate(tree):
+            yield from leaves_with_path(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+# ------------------------------------------------------------------ params
+def param_spec_for(path_names: Sequence[str], shape: Sequence[int], mesh,
+                   opts: ShardingOptions = DEFAULT_OPTIONS) -> PartitionSpec:
+    """Sharding for one parameter leaf, by name + context + shape."""
+    name = path_names[-1]
+    ctx = set(path_names)
+
+    if name in ("ln1", "ln2", "lnx", "final_norm", "norm", "conv_b",
+                "xgate", "A_log", "dt_bias", "D", "count"):
+        return P()
+    if opts.replicate_params:
+        return P()
+    if not opts.use_model_axis:
+        # pure-DP / FSDP-only: shard a trailing dim over data (never the
+        # leading stacked-layer dim)
+        return _pick_spec(shape, mesh, model_cands=(),
+                          data_cands=tuple(range(-1, -len(shape), -1))
+                          or (-1,))
+    if not opts.attn_model and name in ("wq", "wk", "wv", "wo"):
+        return _pick_spec(shape, mesh, model_cands=(),
+                          data_cands=(-3,) if name != "wo" else (-1,))
+    if name == "embed":
+        return _pick_spec(shape, mesh, model_cands=(-2,), data_cands=(-1,))
+    if name in ("head", "router"):
+        return _pick_spec(shape, mesh, model_cands=(-1,), data_cands=(-2,))
+    if name in ("wq", "wk", "wv"):          # (..., D, H, hd)
+        return _pick_spec(shape, mesh, model_cands=(-2, -1),
+                          data_cands=(-3,))
+    if name == "wo":                         # (..., H, hd, D)
+        return _pick_spec(shape, mesh, model_cands=(-3, -2),
+                          data_cands=(-1,))
+    if name in ("wg", "wu"):
+        if "moe" in ctx:                     # (..., E, D, F)
+            return _pick_spec(shape, mesh, model_cands=(-3,),
+                              data_cands=(-1,))
+        return _pick_spec(shape, mesh, model_cands=(-1,), data_cands=(-2,))
+    if name == "wd":
+        if "moe" in ctx:                     # (..., E, F, D)
+            return _pick_spec(shape, mesh, model_cands=(-3,),
+                              data_cands=(-2,))
+        return _pick_spec(shape, mesh, model_cands=(-2,), data_cands=(-1,))
+    if name == "in_proj":                    # (..., D, d_in_proj)
+        return _pick_spec(shape, mesh, model_cands=(-1,), data_cands=(-2,))
+    if name == "out_proj":                   # (..., d_inner, D)
+        return _pick_spec(shape, mesh, model_cands=(-2,), data_cands=(-1,))
+    if name == "conv_w":                     # (..., conv_dim, K)
+        return _pick_spec(shape, mesh, model_cands=(-2,), data_cands=())
+    return P()                               # fallback: replicate
+
+
+def param_specs(tree: Pytree, mesh,
+                opts: ShardingOptions = DEFAULT_OPTIONS) -> Pytree:
+    return _map_with_path(
+        lambda path, leaf: param_spec_for(path, _shape(leaf), mesh, opts),
+        tree)
+
+
+def opt_specs(opt_state: Pytree, params_specs_tree: Pytree, mesh,
+              opts: ShardingOptions = DEFAULT_OPTIONS) -> Pytree:
+    """Optimizer state mirrors param sharding (m/v); scalars replicate:
+    the port's step count is a host int, spec ``()``."""
+    del params_specs_tree
+
+    def one(path, leaf):
+        if path and path[0] in ("m", "v"):
+            return param_spec_for(path[1:], _shape(leaf), mesh, opts)
+        return P()
+    return _map_with_path(one, opt_state)
+
+
+# ------------------------------------------------------------------ batch
+def batch_specs(batch: Pytree, mesh,
+                opts: ShardingOptions = DEFAULT_OPTIONS) -> Pytree:
+    """Shard batch dims over the data axes; everything else replicated."""
+    daxes = data_axes(mesh)
+    if opts.batch_over_model:
+        daxes = daxes + ("model",)
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        if not shape:
+            return P()
+        # largest prefix of the data axes that divides the batch dim
+        axes = list(daxes)
+        while axes and shape[0] % _axis_size(mesh, tuple(axes)) != 0:
+            axes.pop()
+        if not axes:
+            return P(*([None] * len(shape)))
+        dspec = tuple(axes) if len(axes) > 1 else axes[0]
+        return P(dspec, *([None] * (len(shape) - 1)))
+    return _map_with_path(one, batch)
+
+
+# ------------------------------------------------------------------ cache
+def cache_spec_for(path_names: Sequence[str], shape: Sequence[int],
+                   mesh) -> PartitionSpec:
+    """Decode-cache sharding: KV seq over 'model' (flash-decode layout),
+    batch over data when divisible; SSM states shard heads/P over model."""
+    name = path_names[-1]
+    daxes = data_axes(mesh)
+    dsize = _axis_size(mesh, daxes)
+    dspec = daxes if len(daxes) > 1 else daxes[0]
+    msize = _axis_size(mesh, "model")
+    spec: list = [None] * len(shape)
+
+    if name in ("k", "v"):       # (L, B, K, S, hd) or (B, K, S, hd)
+        b, s = len(shape) - 4, len(shape) - 2
+        if shape[b] % dsize == 0:
+            spec[b] = dspec
+        if shape[s] % msize == 0:
+            spec[s] = "model"
+        return P(*spec)
+    if name in ("ck", "cv"):     # (L, B, P, K, hd)
+        b = len(shape) - 4
+        if shape[b] % dsize == 0:
+            spec[b] = dspec
+        return P(*spec)
+    if name == "conv":           # (L, B, K-1, conv_dim)
+        b, c = len(shape) - 3, len(shape) - 1
+        if shape[b] % dsize == 0:
+            spec[b] = dspec
+        if shape[c] % msize == 0:
+            spec[c] = "model"
+        return P(*spec)
+    if name == "ssm":            # (L, B, H, P, N)
+        b, h, p = len(shape) - 4, len(shape) - 3, len(shape) - 2
+        if shape[b] % dsize == 0:
+            spec[b] = dspec
+        if shape[h] % msize == 0:
+            spec[h] = "model"
+        elif shape[p] % msize == 0:
+            spec[p] = "model"
+        return P(*spec)
+    return P()
+
+
+def cache_specs(cache: Pytree, mesh,
+                opts: ShardingOptions = DEFAULT_OPTIONS) -> Pytree:
+    del opts
+    return _map_with_path(
+        lambda path, leaf: cache_spec_for(path, _shape(leaf), mesh), cache)
+
+
+# ------------------------------------------------------------------ logits
+def logits_spec(mesh) -> PartitionSpec:
+    daxes = data_axes(mesh)
+    dspec = daxes if len(daxes) > 1 else daxes[0]
+    return P(dspec, None, "model")
+
+
+def shard_shape(shape: Sequence[int], spec: Sequence, mesh) -> Tuple[int, ...]:
+    """The per-device shape of a tensor of ``shape`` laid out by ``spec``
+    on ``mesh``: each sharded dim divided by its axes' product (rounded
+    up, as a padded shard would be).  Stands in for the reference's
+    ``to_named``: the port has no SPMD partitioner to place by a spec."""
+    out = list(shape)
+    for i, axis in enumerate(spec):
+        n = _axis_size(mesh, axis)
+        out[i] = -(-out[i] // n)
+    return tuple(out)

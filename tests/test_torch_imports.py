@@ -35,7 +35,10 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.examples.async_study, "
             "repro_torch.examples.crash_recovery_smoke, "
             "repro_torch.examples.federated_pretrain, "
-            "repro_torch.examples.serve_decode\n"
+            "repro_torch.examples.serve_decode, "
+            "repro_torch.launch.specs, repro_torch.launch.variants, "
+            "repro_torch.launch.cost_analysis, repro_torch.launch.dryrun, "
+            "repro_torch.launch.compile_cache\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]\n"
@@ -65,7 +68,9 @@ def test_no_source_imports_jax_or_repro():
                    "fl/checkpointing.py", "launch/pretrain.py",
                    "models/moe.py", "sharding/flash_decode.py",
                    "examples/quickstart.py", "examples/federated_pretrain.py",
-                   "examples/serve_decode.py"):
+                   "examples/serve_decode.py", "launch/specs.py",
+                   "launch/variants.py", "launch/cost_analysis.py",
+                   "launch/dryrun.py", "launch/compile_cache.py"):
         assert PORT / module in files, module
     for path in files:
         for name in _imported_modules(path):
@@ -111,11 +116,9 @@ NOT_PORTED_PACKAGES = {
 NOT_PORTED = {
     "kernels": {"ref": "the *_plain version beside each kernel plays "
                        "kernels/ref.py's role"},
-    "sharding": dict.fromkeys(
-        ("DEFAULT_OPTIONS", "ShardingOptions", "batch_specs", "cache_specs",
-         "data_axes", "logits_spec", "opt_specs", "param_spec_for",
-         "param_specs", "to_named"),
-        "the large-model sharding rules wait for ROADMAP 1.9"),
+    "sharding": {"to_named": "the port has no NamedSharding and no SPMD "
+                             "partitioner; shard_shape gives the per-device "
+                             "shape a spec implies"},
 }
 
 
