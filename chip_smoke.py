@@ -5,6 +5,10 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
+0. repro-lint (python -m repro_torch.analysis, run in process: stdlib
+   only, about 2 s) over src/repro_torch with tests/ as its test suite:
+   any finding fails the run; a "lint" JSON line gives the findings,
+   rules and files.
 1. Environment: versions, the card's name and power limit, TF32 off, and
    the CUDA kernels built with nvcc from csrc/ (build seconds printed);
    the bf16 attention and scan kernels' SASS must hold HGMMA (wgmma),
@@ -29,9 +33,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    round, 30 % stragglers) through run_experiment on "cuda", whose
    default there is the vectorized executor.  First the executor against
    the eager loop client by client (one local epoch, local SGD; with
-   cuDNN off within EXEC_TOL).  Then FedLesScan on the eager loop, again
-   with cuDNN off (the spread of two valid roundings, printed), and on
-   the executor; then FedAvg with the FedAdam server optimizer, FedLesScan
+   cuDNN off within EXEC_TOL); then one more dispatch of that warmed
+   executor with torch.cuda.set_sync_debug_mode("warn") around each
+   vmap(grad_and_value(...)) call: no synchronizing CUDA operation may
+   occur inside one (repro-lint's TORCH001, held on the card), and the
+   count over the whole step loop is printed ("executor_syncs").  Then
+   FedLesScan on the eager loop, again with cuDNN off (the spread of two
+   valid roundings, printed), and on the executor; then FedAvg with the FedAdam server optimizer, FedLesScan
    with int8 and with top-k@1 % compressed client updates, and FedLesScan
    and FedAvg+FedAdam with executor and merge on two-slot meshes of the
    card (fed_agg_sharded / fed_agg_apply_sharded once a merge).  Runs of
@@ -48,7 +56,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    eager loop, one round) and FedLesScan on the executor, the eager loop
    and the eager loop from initial params one ulp apart (the LSTM is
    chaotic at that rate: the spread its params are held beside); the
-   speech CNN (P = 67,267) on executor and eager loop; FEMNIST with the
+   speech CNN (P = 67,267) on executor and eager loop, and one forward
+   of it with training-time dropout from a CUDA generator at rate 0.25
+   (each block's dropped share within 4 sigma, kept values exactly
+   h / 0.75, rate 0 equal to no dropout bit for bit; "speech_dropout");
+   FEMNIST with the
    clients round-robin on three FaaS providers (every attempt of the
    trace on its client's); semi-async FedLesScan on the LSTM checkpointed
    every round against a run stopped after round 2 and resumed (the
@@ -461,6 +473,33 @@ def check_flash_call(got, q, k, v, want, kw: dict, label: str) -> dict:
     return {"max_err": max_abs_err(got, want), "ratio": ratio,
             "median_want": float(abs_want.median()),
             "median_atol": float((bound - rtol * abs_want).median())}
+
+
+# ------------------------------------------------------------ phase 0
+def run_lint() -> dict:
+    """repro-lint over src/repro_torch, in process (stdlib only): any
+    finding not in the committed, empty baseline fails the run."""
+    import io
+    from repro_torch.analysis.__main__ import main as lint_main
+    from repro_torch.analysis.rules import ALL_RULES
+
+    t0 = time.perf_counter()
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        rc = lint_main([str(ROOT / "src" / "repro_torch"), "--format",
+                        "json", "--tests-dir", str(ROOT / "tests")])
+    summary = json.loads(report.getvalue())
+    out = {"findings": summary["summary"]["new"],
+           "baselined": summary["summary"]["baselined"],
+           "rules": len(ALL_RULES), "files": summary["summary"]["files"],
+           "seconds": time.perf_counter() - t0}
+    log(json.dumps({"lint": out}))
+    if rc or out["findings"]:
+        for f in summary["findings"]:
+            log(f"  {f['path']}:{f['line']}: {f['rule']} {f['message']}")
+        raise RuntimeError(f"repro-lint reports {out['findings']} "
+                           f"finding(s) in src/repro_torch")
+    return out
 
 
 # ------------------------------------------------------------ phase 1
@@ -1514,10 +1553,11 @@ def check_executor_full_width() -> dict:
                                            params, 0.0, seeds)
         torch.cuda.synchronize()
         out[key] = time.perf_counter() - t0
+    executor = VectorizedExecutor(task)
     for cudnn in (False, True):
         torch.backends.cudnn.enabled = cudnn
         try:
-            got = VectorizedExecutor(task).run_group(
+            got = executor.run_group(
                 cids, [parts[c] for c in cids], params, 0.0, seeds)
             err, loss_err = 0.0, 0.0
             for cid, seed in zip(cids, seeds):
@@ -1536,6 +1576,95 @@ def check_executor_full_width() -> dict:
             raise RuntimeError(f"executor losses {loss_err} from the eager "
                                f"loop ({key})")
     log(json.dumps({"executor_vs_eager_full_width": out}))
+    check_executor_syncs(executor, cids, [parts[c] for c in cids], params,
+                         seeds)
+    return out
+
+
+@contextlib.contextmanager
+def _recording_syncs(sites: list):
+    """torch.cuda.set_sync_debug_mode("warn") inside the block; each
+    "synchronizing CUDA operation" warning is appended to ``sites`` as
+    the file:line that raised it and the innermost src/repro_torch frame
+    that led there.  An inner block records its own warnings only."""
+    import traceback
+    import warnings
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        # not the mode's one-time "prototype feature" notice
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if "repro_torch" in f.filename]
+        site = f"{'/'.join(Path(filename).parts[-2:])}:{lineno}"
+        if ours:
+            site += f" from {Path(ours[-1].filename).name}:{ours[-1].lineno}"
+        sites.append(site)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+
+def check_executor_syncs(executor, cids, datasets, params, seeds) -> dict:
+    """TORCH001 held on the card: one more dispatch of the warmed
+    executor (MAIN_K full-width FEMNIST clients, one local epoch) with
+    torch.cuda.set_sync_debug_mode("warn") around each
+    vmap(grad_and_value(...)) call only; no such call may synchronize
+    with the host.  The count over the whole _train_slices loop (the
+    step calls plus the proximal term, the optimizer and the loss stack
+    between them) is printed, not gated.  First the instrument itself:
+    one .item() inside it must count once."""
+    import collections
+    from repro_torch.fl import executor as executor_mod
+
+    probe = []
+    with _recording_syncs(probe):
+        torch.ones(1, device="cuda").sum().item()
+    if len(probe) != 1:
+        raise RuntimeError(f"the sync recorder saw {len(probe)} syncs for "
+                           f"one .item()")
+    inside, loop, calls = [], [], [0]
+    real_vmap, real_train = executor_mod.vmap, executor._train_slices
+
+    def watched_vmap(fn, *args, **kwargs):
+        step = real_vmap(fn, *args, **kwargs)
+
+        def call(*a, **kw):
+            calls[0] += 1
+            with _recording_syncs(inside):
+                return step(*a, **kw)
+        return call
+
+    def watched_train(*args, **kwargs):
+        with _recording_syncs(loop):
+            return real_train(*args, **kwargs)
+
+    executor_mod.vmap, executor._train_slices = watched_vmap, watched_train
+    try:
+        executor.run_group(cids, datasets, params, 0.0, seeds)
+        torch.cuda.synchronize()
+    finally:
+        executor_mod.vmap = real_vmap
+        del executor._train_slices
+    out = {"clients": len(cids), "vmapped_calls": calls[0],
+           "syncs_in_vmapped_calls": len(inside),
+           "syncs_in_train_slices": len(inside) + len(loop),
+           "train_slices_sync_sites": dict(collections.Counter(
+               inside + loop))}
+    log(json.dumps({"executor_syncs": out}))
+    if calls[0] < 1:
+        raise RuntimeError("the executor made no vmapped call")
+    if inside:
+        raise RuntimeError(f"{len(inside)} synchronizing CUDA operations "
+                           f"inside the executor's vmapped calls: "
+                           f"{collections.Counter(inside)}")
     return out
 
 
@@ -1721,6 +1850,68 @@ def run_small_models() -> dict:
         for run in (executor, eager):
             check_merge_launches(run)
         out[dataset] = {"executor": executor, "eager": eager, "gap": gap}
+    return out
+
+
+def check_speech_dropout() -> dict:
+    """The speech CNN's training-time dropout on the card: one forward at
+    Table I's width (P = 67,267; batch 5 of 32 x 32 x 1) with a CUDA
+    generator at rate 0.25.  Each block's dropped share within 4 sigma of
+    the rate; kept values exactly h / 0.75 and dropped ones 0, the first
+    block's h equal to the model's without dropout; rate 0 equal to
+    dropout_rng=None bit for bit."""
+    from repro_torch.models import small
+
+    model = small.make_speech_cnn()
+    params = model.init(0, torch.device("cuda"))
+    n_params = sum(t.numel() for p in params.values() for t in p.values())
+    if n_params != MODEL_P["speech"]:
+        raise RuntimeError(f"speech CNN has {n_params} params")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((5, 32, 32, 1), generator=gen, device="cuda")
+    calls, plain = [], small.dropout_plain
+
+    def recording(h, keep, rate):
+        out = plain(h, keep, rate)
+        calls.append((h, keep, out))
+        return out
+
+    rate = 0.25
+    small.dropout_plain = recording
+    try:
+        none = model.apply(params, x)
+        zero = model.apply(params, x, rate=0.0, dropout_rng=torch.Generator(
+            device="cuda").manual_seed(1))
+        undropped = calls[0][0]
+        calls.clear()
+        dropped = model.apply(params, x, rate=rate,
+                              dropout_rng=torch.Generator(
+                                  device="cuda").manual_seed(1))
+    finally:
+        small.dropout_plain = plain
+    out = {"params": n_params, "rate": rate,
+           "rate0_equals_none": bool(torch.equal(zero, none)),
+           "logits_finite": bool(torch.isfinite(dropped).all()),
+           "blocks": []}
+    if not out["rate0_equals_none"] or not out["logits_finite"]:
+        raise RuntimeError(f"speech dropout: {out}")
+    if len(calls) != 2 or not torch.equal(calls[0][0], undropped):
+        raise RuntimeError("speech dropout: the first block's activations "
+                           "differ from the model's without dropout")
+    for h, keep, got in calls:
+        n = keep.numel()
+        share = 1.0 - float(keep.float().mean())
+        sigma = math.sqrt(rate * (1 - rate) / n)
+        block = {"shape": list(h.shape), "dropped_share": share,
+                 "sigmas": abs(share - rate) / sigma,
+                 "kept_exact": bool(torch.equal(got[keep],
+                                                h[keep] / (1 - rate))),
+                 "dropped_zero": not bool(got[~keep].any())}
+        out["blocks"].append(block)
+        if (block["sigmas"] > 4 or not block["kept_exact"]
+                or not block["dropped_zero"]):
+            raise RuntimeError(f"speech dropout block: {block}")
+    log(json.dumps({"speech_dropout": out}))
     return out
 
 
@@ -3547,6 +3738,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA card", file=sys.stderr)
         return 1
+    run_lint()
     smi = phase_environment()
     part = card_part(smi)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3605,6 +3797,7 @@ def main() -> int:
     # multi-platform fleet, checkpoint/resume
     check_lstm_executor_full_width()
     small_models = run_small_models()
+    check_speech_dropout()
     fleet = run_platforms()
     check_checkpoint_resume()
     new_runs = [r for m in small_models.values()

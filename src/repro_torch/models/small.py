@@ -152,12 +152,27 @@ def make_char_lstm(vocab: int = 82, embed: int = 8,
 
 
 # ---------------------------------------------------------------- speech
+def dropout_plain(h: torch.Tensor, keep: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """Inverted dropout on a given keep mask: kept entries scaled by
+    1 / (1 - rate), dropped ones 0 — the JAX package's
+    ``jnp.where(keep, h / (1 - rate), 0.0)``.  Its gradient is
+    ``keep / (1 - rate)``: nothing flows through a dropped entry."""
+    return torch.where(keep, h / (1 - rate), 0.0)
+
+
 def make_speech_cnn(frames: int = 32, mels: int = 32, n_classes: int = 35,
                     name: str = "speech_cnn") -> ModelDef:
     """Paper §VI-A2: two blocks of [conv3x3, conv3x3, maxpool, dropout] →
-    average pool → FC(35).  Dropout is inference-scaled: the reference
-    applies it only when a dropout rng is passed, which its training task
-    never does, and that path is not ported."""
+    average pool → FC(35).  Dropout is inference-scaled: ``apply`` drops
+    only when given ``dropout_rng``, a ``torch.Generator`` on the input's
+    device (no training path passes one, as in the reference).  After
+    each block's max-pool it draws ``keep ~ Bernoulli(1 - rate)`` from
+    that generator and applies ``dropout_plain``: at rate 0 the logits
+    equal those of ``dropout_rng=None`` bit for bit.  Torch's generator
+    cannot reproduce ``jax.random`` draws (and the reference reuses one
+    key for both blocks), so the two packages agree on the formula and
+    the keep rate, not on the mask."""
 
     def init(seed: int = 0, device: Optional[torch.device] = None):
         """He-normal kernels and zero biases from a ``torch.Generator``
@@ -172,16 +187,24 @@ def make_speech_cnn(frames: int = 32, mels: int = 32, n_classes: int = 35,
             "out": _dense_init(gen, 64, n_classes, device),
         }
 
-    def apply(params, x, *, dropout_rng=None, rate: float = 0.25):
-        if dropout_rng is not None:
-            raise NotImplementedError(
-                "training-time dropout of the speech CNN is not ported to "
-                "the PyTorch package (ROADMAP Queue 1.2)")
+    def apply(params, x, *, dropout_rng: Optional[torch.Generator] = None,
+              rate: float = 0.25):
+        if dropout_rng is not None and not isinstance(dropout_rng,
+                                                      torch.Generator):
+            raise TypeError(f"dropout_rng must be a torch.Generator on the "
+                            f"input's device, not {type(dropout_rng)}")
 
         def block(h, pa, pb):
             h = F.relu(_conv(pa, h))
             h = F.relu(_conv(pb, h))
-            return F.max_pool2d(h, 2)
+            h = F.max_pool2d(h, 2)
+            if dropout_rng is not None:
+                # drawn in h's memory layout, so the next convolution
+                # sees the layout it sees without dropout
+                keep = torch.empty_like(h).bernoulli_(
+                    1 - rate, generator=dropout_rng).bool()
+                h = dropout_plain(h, keep, rate)
+            return h
 
         h = x.permute(0, 3, 1, 2)                    # NHWC → NCHW
         h = block(h, params["c1a"], params["c1b"])

@@ -38,7 +38,12 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.examples.serve_decode, "
             "repro_torch.launch.specs, repro_torch.launch.variants, "
             "repro_torch.launch.cost_analysis, repro_torch.launch.dryrun, "
-            "repro_torch.launch.compile_cache\n"
+            "repro_torch.launch.compile_cache, repro_torch.analysis, "
+            "repro_torch.analysis.core, repro_torch.analysis.baseline, "
+            "repro_torch.analysis.__main__, repro_torch.analysis.rules, "
+            "repro_torch.analysis.rules.determinism, "
+            "repro_torch.analysis.rules.torch_safety, "
+            "repro_torch.analysis.rules.contracts\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]\n"
@@ -70,7 +75,13 @@ def test_no_source_imports_jax_or_repro():
                    "examples/quickstart.py", "examples/federated_pretrain.py",
                    "examples/serve_decode.py", "launch/specs.py",
                    "launch/variants.py", "launch/cost_analysis.py",
-                   "launch/dryrun.py", "launch/compile_cache.py"):
+                   "launch/dryrun.py", "launch/compile_cache.py",
+                   "analysis/__init__.py", "analysis/core.py",
+                   "analysis/baseline.py", "analysis/__main__.py",
+                   "analysis/rules/__init__.py",
+                   "analysis/rules/determinism.py",
+                   "analysis/rules/torch_safety.py",
+                   "analysis/rules/contracts.py"):
         assert PORT / module in files, module
     for path in files:
         for name in _imported_modules(path):
@@ -111,9 +122,12 @@ def test_entry_points_need_cuda_unless_told_cpu():
 REFERENCE_PACKAGES = ("analysis", "checkpoint", "configs", "core", "data",
                       "faas", "fl", "kernels", "launch", "models", "optim",
                       "sharding")
-NOT_PORTED_PACKAGES = {
-    "analysis": "static analysis of the port waits for ROADMAP 1.7"}
+NOT_PORTED_PACKAGES: dict = {}
 NOT_PORTED = {
+    "analysis": {"gates": "the port has no REPRO_* environment switch (no "
+                          "path falls back to a plain version on a "
+                          "variable's say), so no registry; repro-lint's "
+                          "GATE002 keeps it so"},
     "kernels": {"ref": "the *_plain version beside each kernel plays "
                        "kernels/ref.py's role"},
     "sharding": {"to_named": "the port has no NamedSharding and no SPMD "

@@ -116,13 +116,145 @@ def test_table1_param_counts(dataset, want):
             ("adam", 1e-3, 5, 5)
 
 
-def test_speech_dropout_generator_raises():
-    model = small.make_speech_cnn(*SPEECH_SMALL)
+# ------------------------------------------------------------ dropout
+def _speech(args=SPEECH_SMALL, batch=2, seed=1):
+    model = small.make_speech_cnn(*args)
     params = model.init(0, torch.device("cpu"))
-    x = torch.zeros(2, 16, 16, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1.2"):
-        model.apply(params, x, dropout_rng=torch.Generator())
-    assert model.apply(params, x).shape == (2, 7)
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(batch, args[0], args[1], 1)).astype(np.float32))
+    return model, params, x
+
+
+def _recorded_blocks(monkeypatch):
+    """Record (h, keep, out) of every dropout_plain call of a forward."""
+    calls = []
+    plain = small.dropout_plain
+
+    def recording(h, keep, rate):
+        out = plain(h, keep, rate)
+        calls.append((h, keep, out))
+        return out
+    monkeypatch.setattr(small, "dropout_plain", recording)
+    return calls
+
+
+def test_speech_dropout_generator_raises():
+    """dropout_rng takes a torch.Generator: a JAX key (a uint32 pair) is
+    refused, and a generator gives logits."""
+    model, params, x = _speech()
+    with pytest.raises(TypeError, match="torch.Generator"):
+        model.apply(params, x,
+                    dropout_rng=np.asarray(jax.random.PRNGKey(0)))
+    got = model.apply(params, x,
+                      dropout_rng=torch.Generator().manual_seed(0))
+    assert got.shape == (2, 7) and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.25, 0.5])
+def test_speech_dropout_formula_matches_reference(rate):
+    """dropout_plain equals the reference's jnp.where(keep, h/(1-rate), 0)
+    bit for bit on the same numpy mask."""
+    rng = np.random.default_rng(2)
+    h = rng.normal(size=(4, 8, 8, 32)).astype(np.float32)
+    keep = rng.random(h.shape) < 1 - rate
+    want = np.asarray(jnp.where(jnp.asarray(keep),
+                                jnp.asarray(h) / (1 - rate), 0.0))
+    got = small.dropout_plain(torch.from_numpy(h), torch.from_numpy(keep),
+                              rate)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("args", [SPEECH_SMALL, (32, 32, 35)])
+def test_speech_dropout_rate_zero_is_no_dropout(args):
+    model, params, x = _speech(args)
+    want = model.apply(params, x)
+    got = model.apply(params, x, dropout_rng=torch.Generator().manual_seed(3),
+                      rate=0.0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rate", [0.25, 0.5])
+def test_speech_dropout_share_and_kept_values(rate, monkeypatch):
+    """At batch 64 each block drops within 4σ of ``rate``; kept entries
+    are h / (1 - rate) exactly and dropped ones 0; the first block's
+    pre-dropout activations are the no-dropout model's."""
+    model, params, x = _speech(batch=64)
+    calls = _recorded_blocks(monkeypatch)
+    model.apply(params, x, dropout_rng=torch.Generator().manual_seed(4),
+                rate=0.0)
+    undropped = calls[0][0]
+    calls.clear()
+    model.apply(params, x, dropout_rng=torch.Generator().manual_seed(4),
+                rate=rate)
+    assert len(calls) == 2
+    assert torch.equal(calls[0][0], undropped)
+    for h, keep, out in calls:
+        n = keep.numel()
+        share = 1.0 - keep.float().mean().item()
+        assert abs(share - rate) <= 4 * np.sqrt(rate * (1 - rate) / n)
+        assert torch.equal(out[keep], h[keep] / (1 - rate))
+        assert not out[~keep].any()
+
+
+def test_speech_dropout_same_seed_same_logits():
+    model, params, x = _speech(batch=8)
+
+    def run(seed):
+        return model.apply(params, x,
+                           dropout_rng=torch.Generator().manual_seed(seed))
+    assert torch.equal(run(5), run(5))
+    assert not torch.equal(run(5), run(6))
+    assert not torch.equal(run(5), model.apply(params, x))
+
+
+def test_speech_dropout_grads_flow_through_kept_entries_only():
+    rate = 0.25
+    rng = np.random.default_rng(7)
+    h = torch.from_numpy(rng.normal(size=(3, 16, 4, 4)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=h.shape).astype(np.float32))
+    keep = torch.from_numpy(rng.random(h.shape) < 1 - rate)
+    h.requires_grad_(True)
+    (small.dropout_plain(h, keep, rate) * w).sum().backward()
+    assert torch.equal(h.grad, torch.where(keep, w / (1 - rate), 0.0))
+    # through the whole model: every param gets a finite gradient
+    model, params, x = _speech(batch=4)
+    params = {k: {n: t.requires_grad_(True) for n, t in p.items()}
+              for k, p in params.items()}
+    model.apply(params, x, dropout_rng=torch.Generator().manual_seed(8)
+                ).square().sum().backward()
+    for p in params.values():
+        for t in p.values():
+            assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
+@pytest.mark.parametrize("case", ["speech_reduced", "speech_table1"])
+def test_speech_dropout_forward_matches_jax_on_its_masks(case, monkeypatch):
+    """The whole forward against the reference's with a dropout key: the
+    port given the masks the reference draws (one key, reused by both
+    blocks: jax.random.bernoulli at each block's NHWC shape) gives its
+    logits within 1e-5."""
+    rate = 0.25
+    _, args, make_x = CASES[case]
+    jax_model = jax_small.make_speech_cnn(*args)
+    model = small.make_speech_cnn(*args)
+    init = _jax_init(jax_model)
+    x = make_x(np.random.default_rng(1))
+    key = jax.random.PRNGKey(9)
+    want = np.asarray(jax_model.apply(init, jnp.asarray(x), dropout_rng=key,
+                                      rate=rate))
+    plain = small.dropout_plain
+
+    def with_jax_mask(h, keep, rate):
+        nhwc = (h.shape[0], h.shape[2], h.shape[3], h.shape[1])
+        mask = np.array(jax.random.bernoulli(key, 1 - rate, nhwc))
+        return plain(h, torch.from_numpy(mask).permute(0, 3, 1, 2), rate)
+    monkeypatch.setattr(small, "dropout_plain", with_jax_mask)
+    got = model.apply(params_from_numpy(init, "cpu"), torch.from_numpy(x),
+                      dropout_rng=torch.Generator(), rate=rate)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert not np.allclose(want, np.asarray(
+        jax_model.apply(init, jnp.asarray(x))), **TOL)
 
 
 # ------------------------------------------------------------ training
