@@ -171,7 +171,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    FlopCounterMode's over one extra untimed step on the card within
    DRY_FLOP_RTOL.  Where a step launches ssd_scan or flash_attention the
    card's count misses the kernels' work: the gap is printed.
-6. A JSON line with every kernel's numbers, then, as the last line,
+6. The sharded train step (run_sharded_train; launch/sharded.py, run
+   after phase 4's train runs and before phase 5's new ones): one NCCL
+   rank in this process (a HashStore, world size 1), a (1, 1) ("data",
+   "model") DeviceMesh, mamba2-130m at full width and depth with phase
+   4's config and batches (8 × 4096, remat, bf16 activations), three
+   steps through make_train_step and three through the sharded step from
+   the same init.  Gates: losses within SHARDED_LOSS_RTOL step by step;
+   the params after the three steps, and after the last sharded step
+   against the plain step from the sharded state before it (gathered,
+   its loss within SHARDED_LOSS_RTOL), as tests/test_torch_pretrain.py
+   holds them (1e-3·lr plus one ulp, where m stands above
+   SHARDED_GRAD_FLOOR of its leaf's largest); 144
+   ssd_scan launches (2 a layer a step with remat), every one from the
+   scan's local_map region (ssd_scan_sharded, counted by a wrapper the
+   phase installs), and two more sharded steps under one torch.profiler
+   session (CUDA only, no schedule), split by a device sleep between
+   them, the second counted: 48 launches by the wrapper's count and each
+   of the three bf16 scan kernels seen 48 times by the profiler on the
+   card after the sleep.  The first step takes the records that CUPTI
+   drops at a session's start (launch records whose correlation id has
+   no record on the card, in the first milliseconds; a whole scan call
+   among them late in the script).  47 passes only where the counted
+   step's own launch records show 3 or more such; the counts of both
+   steps are printed.
+   Then launch/pretrain.py under torch.distributed.run on one rank
+   (SHARDED_CLI): exit 0, every logged loss finite.  A "sharded_train" JSON line gives ms a step of both
+   steps, peak GB, the torch version and the card's name and power
+   limit.
+7. A JSON line with every kernel's numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
 It needs a card: without CUDA, or without the rest of the repository
@@ -309,6 +337,17 @@ SSD_GRAD_TOL = 1e-5
 # the scan kernels' names as the profiler lists them (fp32; bf16 passes)
 SSD_KERNEL_NAMES = ("ssd_kernel", "chunk_state_kernel", "state_pass_kernel",
                     "chunk_output_kernel")
+# phase 6, the sharded train step on one NCCL rank: (arch, batch,
+# sequence, steps) at phase 4's shape; losses within SHARDED_LOSS_RTOL of
+# the plain step's (tests/torch_parity_common.py LOSS_RTOL), params held as
+# tests/test_torch_pretrain.py holds them where m stands above
+# SHARDED_GRAD_FLOOR of its leaf's largest; launch/pretrain.py's run under
+# torch.distributed.run
+SHARDED_RUN = ("mamba2-130m", 8, 4096, 3)
+SHARDED_LOSS_RTOL = 1e-5
+SHARDED_GRAD_FLOOR = 1e-2
+SHARDED_CLI = ("--full", "--arch", "mamba2-130m", "--steps", "2", "--batch",
+               "2", "--seq", "1024", "--log-every", "1")
 # the federated SSM run: examples/federated_pretrain.py's experiment
 # (FedLesScan, 12 clients, 4 a round, 25 % stragglers, 6 rounds, batch 16,
 # local Adam 1e-3, sequences of 32 tokens) with its ModelDef over the full
@@ -3606,6 +3645,259 @@ def run_training(gen, part: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ sharded train
+def _last_step_gap(got: dict, want: dict, lr: float) -> dict:
+    """tests/test_torch_pretrain.py's bound on one step from one state:
+    each param within 1e-3·lr plus one ulp of itself where ``want``'s m
+    stands above SHARDED_GRAD_FLOOR of its leaf's largest; the worst
+    ratio to that bound, and the largest gap anywhere."""
+    from repro_torch.core.flatten import tree_paths
+    worst, anywhere = 0.0, 0.0
+    m_want = dict(tree_paths(want["opt"]["m"]))
+    for (path, g), (_, w) in zip(tree_paths(got["params"]),
+                                 tree_paths(want["params"])):
+        gap = (g.float() - w.float()).abs()
+        anywhere = max(anywhere, float(gap.max()))
+        m = m_want[path].abs()
+        sure = m > SHARDED_GRAD_FLOOR * m.max()
+        w32 = w.float()[sure]
+        ulp = (torch.nextafter(w32.abs(), torch.full_like(w32, math.inf))
+               - w32.abs())
+        ratio = gap[sure] / (1e-3 * lr + ulp)
+        worst = max(worst, float(ratio.max()) if ratio.numel() else 0.0)
+    return {"worst_over_bound": worst, "max_abs_gap": anywhere}
+
+
+def run_sharded_train(smi: str) -> dict:
+    """Phase 6: the sharded train step (launch/sharded.py) on one NCCL
+    rank.  A (1, 1) ("data", "model") DeviceMesh over a process group of
+    one, made in this process; mamba2-130m at full width and depth (the
+    phase 4 run's config and batches, SHARDED_RUN) for three steps through
+    make_train_step and three through the sharded step, from the same
+    init: losses within SHARDED_LOSS_RTOL step by step, the params after
+    the three steps, and after the last sharded step against the plain
+    step from the sharded state before it, at tests/test_torch_pretrain.py's
+    bound (one rank computes what the plain step computes: the loss's
+    logsumexp is torch's arithmetic), every ssd_scan launch made from
+    the scan's local_map region (ssd_scan_sharded; 2 a layer a step with
+    remat), and a profiled sharded step whose scan kernels the profiler
+    counts.  Then launch/pretrain.py under torch.distributed.run on one
+    rank (SHARDED_CLI): exit 0 and finite losses.  ms a step, peak GB and
+    the torch version are printed beside the card's name and power
+    limit."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.models.ssm as ssm
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.kernels import KERNELS, reset_launches, ssd_scan
+    from repro_torch.launch.mesh import make_host_mesh, to_device_mesh
+    from repro_torch.launch.sharded import make_sharded_train_step
+    from repro_torch.models import make_train_step
+    from repro_torch.sharding.rules import gather
+
+    arch, batch, S, steps = SHARDED_RUN
+    cfg = train_config(arch)
+    if not cfg.remat:
+        raise RuntimeError(f"{arch}: the full config trains with remat")
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    region = ssm.ssd_scan_sharded
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return region(*args, **kw)
+    try:
+        device_mesh = to_device_mesh(make_host_mesh(device="cuda"), "cuda")
+        batches = _lm_batches(cfg, batch, S, steps)
+        runs = {}
+        for name in ("plain", "sharded"):
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step, init = (make_train_step(cfg) if name == "plain" else
+                          make_sharded_train_step(cfg, device_mesh))
+            state = init(torch.Generator(device="cuda").manual_seed(0))
+            if name == "sharded" and not isinstance(
+                    state["params"]["embed"], DTensor):
+                raise RuntimeError("the sharded state holds no DTensor")
+            reset_launches()
+            calls[0] = 0
+            ssm.ssd_scan_sharded = counted
+            losses, step_s = [], []
+            for i, b in enumerate(batches):
+                if name == "sharded" and i == steps - 1:
+                    before = gather(state)
+                t0 = time.perf_counter()
+                state, loss = step(state, b)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+            ssm.ssd_scan_sharded = region
+            runs[name] = {
+                "losses": losses, "step_s": step_s,
+                "ms_per_step": 1e3 * sum(step_s[1:]) / (steps - 1),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": {k.__name__: k.launches for k in KERNELS},
+                "region_calls": calls[0]}
+            if name == "plain":
+                plain_final = state
+            else:
+                final = gather(state)
+                # two more sharded steps in one profiler session (no
+                # schedule), a device sleep between them, the session's
+                # longest kernel, marking the boundary.  CUPTI drops
+                # records in a session's first milliseconds, so the
+                # second step is the one counted
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for i in range(2):
+                        if i:
+                            torch.cuda._sleep(HOLD_CYCLES)
+                        reset_launches()
+                        state, _ = step(state, batches[i])
+                        torch.cuda.synchronize()
+                runs[name]["profiled_step_launches"] = ssd_scan.launches
+                runs[name]["profiled_steps"] = _profiled_steps(prof)
+            del state
+        plain_step, _ = make_train_step(cfg)
+        want, want_loss = plain_step(before, batches[-1])
+        gap = _last_step_gap(final, want, cfg.learning_rate)
+        gap_all = _last_step_gap(final, plain_final, cfg.learning_rate)
+        in_super, rem = _mamba_layers(cfg)
+        want_launches = steps * (2 * in_super + rem)
+        out = {"run": f"{arch} sharded train", "card": smi,
+               "torch": torch.__version__, "cuda": torch.version.cuda,
+               "mesh": dict(zip(device_mesh.mesh_dim_names,
+                                device_mesh.shape)),
+               "batch": batch, "seq": S, "steps": steps,
+               "params": sum(t.numel() for t in tree_leaves(final["params"])),
+               "want_ssd_launches": want_launches,
+               "last_step_from_carried_state": {
+                   "plain_loss": float(want_loss), **gap},
+               "params_after_all_steps": gap_all, **runs}
+        del before, final, want, plain_final
+        torch.cuda.empty_cache()
+    finally:
+        ssm.ssd_scan_sharded = region
+        dist.destroy_process_group()
+    out["cli"] = _run_sharded_cli()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"sharded_train": out}))
+    plain, sharded = runs["plain"], runs["sharded"]
+    failures = []
+    for a, b in zip(sharded["losses"], plain["losses"]):
+        if not (math.isfinite(a) and abs(a - b) <= SHARDED_LOSS_RTOL * abs(b)):
+            failures.append(f"losses {sharded['losses']} against "
+                            f"{plain['losses']}")
+            break
+    if not abs(sharded["losses"][-1] - out["last_step_from_carried_state"][
+            "plain_loss"]) <= SHARDED_LOSS_RTOL * abs(sharded["losses"][-1]):
+        failures.append("the last step's loss against the plain step's "
+                        "from the same state")
+    for label, g in (("the last step from one state", gap),
+                     (f"{steps} steps from one init", gap_all)):
+        if not g["worst_over_bound"] <= 1.0:
+            failures.append(f"params {g['worst_over_bound']:.4g} of the "
+                            f"bound after {label}")
+    for name, run in runs.items():
+        launches = run["launches"]
+        if any(launches[k] != (want_launches if k == "ssd_scan" else 0)
+               for k in launches):
+            failures.append(f"{name}: launches {launches}, want "
+                            f"{want_launches} ssd_scan")
+    if sharded["region_calls"] != want_launches:
+        failures.append(f"{sharded['region_calls']} ssd_scan_sharded calls "
+                        f"for {want_launches} launches")
+    # the profiled step: the wrapper's count is exact, and the profiler
+    # must see each bf16 pass once a launch; one launch fewer passes only
+    # where the profiler's own events show records lost: launches whose
+    # kernel record is missing, at least its three and under 1 % of them
+    per_step = want_launches // steps
+    if sharded["profiled_step_launches"] != per_step:
+        failures.append(f"profiled step: {sharded['profiled_step_launches']}"
+                        f" ssd_scan launches, want {per_step}")
+    counted = sharded["profiled_steps"][-1]
+    seen = {counted["scan_kernels"].get(k, 0)
+            for k in SSD_KERNEL_NAMES if k != "ssd_kernel"}
+    lost = counted["launches_without_kernel"]
+    if seen != {per_step} and not (
+            seen == {per_step - 1} and (lost or 0) >= 3):
+        failures.append(f"profiled step: scan kernels "
+                        f"{counted['scan_kernels']} for {per_step} "
+                        f"launches ({lost} of {counted['launches']} launch "
+                        f"records without a kernel record)")
+    if failures:
+        raise RuntimeError("sharded train: " + "; ".join(failures))
+    return out
+
+
+def _profiled_steps(prof) -> list:
+    """The two steps of a CUDA profile split at its longest kernel (the
+    device sleep between them): for each, the scan's kernels that ran on
+    the card, the launch records the host made (split at the sleep's own
+    launch record, matched by CUPTI correlation id; None where that
+    record is lost) and those whose correlation id has no record on the
+    card (lost by CUPTI)."""
+    on_card, launched = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            on_card.append(e)
+        elif "LaunchKernel" in e.name:
+            launched[e.id] = e.time_range.start
+    marker = max(on_card, key=lambda e: e.time_range.elapsed_us())
+    ids = {e.id for e in on_card}
+    split = launched.get(marker.id)
+    out = []
+    for second in (False, True):
+        scan = {}
+        for e in on_card:
+            if e is not marker and (
+                    e.time_range.start > marker.time_range.start) == second:
+                for k in SSD_KERNEL_NAMES:
+                    if k in e.name:
+                        scan[k] = scan.get(k, 0) + 1
+        step = None if split is None else [
+            c for c, t in launched.items()
+            if c != marker.id and (t > split) == second]
+        out.append({"scan_kernels": scan,
+                    "launches": None if step is None else len(step),
+                    "launches_without_kernel": None if step is None else sum(
+                        1 for c in step if c not in ids)})
+    out[1]["marker"] = {"kernel": marker.name[:60],
+                        "ms": marker.time_range.elapsed_us() / 1e3}
+    return out
+
+
+def _run_sharded_cli() -> dict:
+    """launch/pretrain.py under torch.distributed.run, one rank on the
+    card (SHARDED_CLI): exit 0, every logged loss finite."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "repro_torch.launch.pretrain",
+         *SHARDED_CLI], cwd=ROOT, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in re.findall(r"^step +\d+ loss ([\d.naif]+)",
+                                           proc.stdout, re.M)]
+    log(f"torch.distributed.run ... repro_torch.launch.pretrain "
+        f"{' '.join(SHARDED_CLI)}: exit {proc.returncode} in {wall:.1f} s")
+    for line in proc.stdout.splitlines():
+        log(f"  | {line}")
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise RuntimeError(f"launch/pretrain.py (torch.distributed.run) "
+                           f"exited {proc.returncode}")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"launch/pretrain.py (torch.distributed.run) "
+                           f"logged losses {losses}")
+    return {"flags": list(SHARDED_CLI), "wall_s": wall, "losses": losses}
+
+
 # ------------------------------------------------------------ dry run
 def _prediction(cfg, batch: int, S: int, kind: str) -> dict:
     """launch/dryrun.predict of ``cfg`` at (batch, S) on one card's mesh
@@ -3840,6 +4132,8 @@ def main() -> int:
     zoo = run_zoo(part)
     training = run_training(gen, part)
     log(f"train phase done at {time.perf_counter() - T0:.1f} s")
+    sharded_train = run_sharded_train(smi)
+    log(f"sharded train phase done at {time.perf_counter() - T0:.1f} s")
     run_dry_run(predicted, serve, training, part)
     log(f"dry run phase done at {time.perf_counter() - T0:.1f} s")
     # which run's launches each kernel's row reports
@@ -3878,6 +4172,10 @@ def main() -> int:
         **{f"ssm_{k}": fed_ssm_merge[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shape")}})
+    # the sharded train step (phase 6): its launches, all from the scan's
+    # local_map region on one NCCL rank
+    rows[-1]["sharded_train_launches"] = sharded_train["sharded"][
+        "launches"]["ssd_scan"]
     rows[-2]["musicgen_launches"] = training["musicgen_serve"]["launches"][
         "flash_attention"]
     for arch, _, _ in ZOO_SERVES:

@@ -11,6 +11,10 @@ array whose dtype is named ``bfloat16`` (the type JAX's arrays carry)
 becomes a ``torch.bfloat16`` tensor, and back.  Numpy has no such type of
 its own, so the way back needs one registered in the process (JAX or
 ``ml_dtypes`` loaded); the port imports neither.
+
+A DTensor leaf (the sharded train step's) is gathered whole with
+``full_tensor()``, a collective: every rank of its mesh calls
+``params_to_numpy`` / ``train_state_to_numpy`` together.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .core.flatten import tree_map
 from .device import DeviceLike, resolve_device
@@ -31,6 +36,8 @@ def _to_tensor(leaf: Any) -> torch.Tensor:
 
 
 def _to_array(t: torch.Tensor) -> np.ndarray:
+    if isinstance(t, DTensor):          # gathered whole on every rank
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype != torch.bfloat16:
         return t.numpy()

@@ -20,6 +20,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -126,12 +127,24 @@ def check_status(lib: ctypes.CDLL, name: str, code: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({code})")
 
 
+def refuse_dtensor(kernel: str, *tensors) -> None:
+    """Raise ``TypeError`` when an input of ``kernel`` is a DTensor: its
+    ``data_ptr()`` is no device pointer, so the kernel takes each rank's
+    local tensors inside a ``local_map`` region (launch/sharded.py).  The
+    plain version raises too, so a missed region fails on the CPU."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{kernel} takes plain tensors, not DTensors: call "
+                        f"it on local shards inside a local_map region")
+
+
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise when grad mode is on and an input of ``kernel`` requires grad.
     The hand-written kernels have no backward (the JAX package's Pallas
     kernels have none either, so ``jax.grad`` cannot differentiate them):
     their outputs would leave autograd with no gradient and no error.  The
-    plain version raises too, so a CPU run fails where the card would."""
+    plain version raises too, so a CPU run fails where the card would.
+    A DTensor input raises first (``refuse_dtensor``)."""
+    refuse_dtensor(kernel, *tensors)
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise RuntimeError(

@@ -41,6 +41,15 @@ of the JAX package's ``ssd_chunked`` computes).  So the kernel runs the
 forward of training, and the plain version its backward.  Under
 ``torch.func.vmap`` (the vectorized executor) ``_SSDScan``'s vmap rule
 folds the vmapped dim into the batch, so a call still launches once.
+
+In the sharded train step (launch/sharded.py) the scan's inputs are
+DTensors.  ``ssd_scan_sharded`` runs the scan as a ``local_map`` region:
+batch sharded over the data axes, heads over the model axis when they
+divide it (else the head dim p, else nothing), and the kernels (or the
+plain version on the CPU) see each rank's plain local tensors.  B and C
+enter replicated over the model axis and are cut to the rank's heads by a
+view, so their head-broadcast views keep stride 0.  ``ssd_scan`` itself
+refuses a DTensor: ``data_ptr()`` of one is not a device pointer.
 """
 from __future__ import annotations
 
@@ -49,7 +58,9 @@ import functools
 from typing import Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..sharding.spmd import act_in, model_shard, region
 from . import build
 
 NEG = -1e30                  # the mask value of the reference kernel
@@ -296,9 +307,38 @@ def ssd_scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
     final state.  On the card n must be at most 128 and the last dimension
     of x, B and C contiguous.  Differentiable: with grad mode on and an
     input that requires grad autograd records ``_SSDScan``, whose
-    backward is the plain version's."""
+    backward is the plain version's.  Raises ``TypeError`` on a DTensor
+    (``ssd_scan_sharded`` takes those)."""
+    build.refuse_dtensor("ssd_scan", x, a_dt, B, C)
     _check(x, a_dt, B, C, chunk)
     return _SSDScan.apply(x, a_dt, B, C, chunk, return_state)
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_sharded(x: DTensor, a_dt: DTensor, B: DTensor, C: DTensor,
+                     chunk: int = 128, return_state: bool = False):
+    """``ssd_scan`` of DTensors as a ``local_map`` region (module
+    docstring): y comes back laid out as the region computed it (batch
+    over the data axes, heads or p over the model axis), and with
+    ``return_state`` the state (b, h, p, n) beside it."""
+    rank, size = model_shard(x.device_mesh)
+    h, p = x.shape[2], x.shape[3]
+    # the model axis splits the heads, else the head dim, else nothing
+    split = 2 if h % size == 0 else 3 if p % size == 0 else None
+    x_on = Shard(split) if split else Replicate()
+    state_on = Shard(split - 1) if split else Replicate()
+
+    def local(x_l, a_l, B_l, C_l):
+        if split == 2:
+            n = x_l.shape[2]
+            B_l = B_l.narrow(2, rank * n, n)
+            C_l = C_l.narrow(2, rank * n, n)
+        return ssd_scan(x_l, a_l, B_l, C_l, chunk, return_state)
+
+    return region(local, [act_in(x, x_on),
+                          act_in(a_dt, Shard(2) if split == 2
+                                 else Replicate()),
+                          act_in(B), act_in(C)],
+                  (x_on, state_on) if return_state else x_on)

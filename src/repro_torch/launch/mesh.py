@@ -23,6 +23,14 @@ over ("data", "model") or (2, 16, 16) over ("pod", "data", "model"), as an
 read only a mesh's ``.shape`` and ``.size``, so the dry run
 (launch/dryrun.py) works out per-device shapes for 256 or 512 cards that
 nobody holds.
+
+The large-model train step is multi-controller instead: one process a
+rank, as ``torchrun`` starts them, each placing its shards with DTensor
+(sharding/rules.py ``to_named``).  ``to_device_mesh`` turns a ``Mesh`` or
+``AbstractMesh`` into the ``DeviceMesh`` over the process group's ranks
+with the same axis names and shape, and refuses a group of another size,
+as ``jax.make_mesh`` refuses too few devices; ``abstract_mesh`` is the way
+back, for the rules, which read axis sizes by name.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ import math
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..device import DeviceLike, resolve_device
 from ..sharding.rules import CLIENT_AXIS, MESH_AXES
@@ -124,3 +134,23 @@ def make_clients_mesh(clients: int = 1, device: DeviceLike = None) -> Mesh:
     size-1 mesh, which the executor treats as no mesh."""
     n = max(1, min(int(clients), _available(device)))
     return Mesh(_devices(n, device), ((CLIENT_AXIS, n),))
+
+
+def to_device_mesh(mesh, device: DeviceLike = None) -> DeviceMesh:
+    """``mesh``'s axes (names and sizes, row-major) as a ``DeviceMesh`` of
+    ``device``'s type (``None`` means the cards) over the ranks of the
+    default process group.  Raises ``ValueError`` when the group's size (1
+    in a process that joined none) is not the mesh's."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != mesh.size:
+        raise ValueError(f"a mesh of shape {mesh.shape} needs {mesh.size} "
+                         f"ranks; the process group has {world}")
+    return init_device_mesh(resolve_device(device).type,
+                            tuple(mesh.shape.values()),
+                            mesh_dim_names=tuple(mesh.shape))
+
+
+def abstract_mesh(device_mesh: DeviceMesh) -> AbstractMesh:
+    """The axis names and sizes of ``device_mesh``."""
+    return AbstractMesh(tuple(zip(device_mesh.mesh_dim_names,
+                                  device_mesh.shape)))

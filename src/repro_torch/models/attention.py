@@ -11,14 +11,28 @@ hand-written ``flash_attention`` kernel (the reference's field name: in
 the port it routes to the CUDA kernel, and to its plain version on the
 CPU).  The decode cache is updated in place (an indexed write at each
 row's slot), where the reference builds a new array.
+
+On DTensors (the sharded train step) a block runs head-parallel in a
+``local_map`` region (``_attention_sharded``): the specs' layout, heads
+over the model axis and batch over the data axes, computed directly.
+DTensor could place the block op by op, but it re-lays tensors out
+between ops (about a hundred collectives a layer a step), and the GQA
+einsums flatten a batch dim sharded over data with a head dim sharded
+over model, whose strided layouts cost seconds a call to plan; the
+region's collectives are the weights' gathers over the data axes and one
+all-reduce of the output over the model axis (their grads: the
+reductions back, and one all-reduce of x's grad).
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels.flash_attention import flash_attention
+from ..sharding.spmd import (act_in, batch_placements, model_shard, region,
+                             weight_in)
 from .config import ArchConfig
 from .layers import apply_rope, he_init, softcap
 
@@ -36,10 +50,13 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig,
             "wo": he_init(gen, (H, hd, D), H * hd, dtype)}
 
 
-def _qkv(p: Pytree, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def _qkv(p: Pytree, x: torch.Tensor,
+         src: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+    """Queries of x (B, S, D); keys and values of ``src`` (x if None)."""
+    src = x if src is None else src
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(x.dtype))
     return q, k, v
 
 
@@ -82,7 +99,67 @@ def _softmax(scores: torch.Tensor, mask: torch.Tensor,
     return e / torch.sum(e, dim=-1, keepdim=True)
 
 
+def _attention_sharded(p: Pytree, x, src, rope, core):
+    """The attention block of DTensor ``x`` (B, S, D) (its keys and values
+    projected from ``src``: x itself, or a VLM's image features) as a
+    ``local_map`` region: batch over the data axes, heads over the model
+    axis.  The query heads split when they divide the axis, the KV heads
+    with them when those divide it too; else each rank projects every KV
+    head and keeps those its query heads read.  Query heads that do not
+    divide the axis run whole on every rank.  Inside: ``_qkv``, ``rope``,
+    ``core(q, k, v)`` on the local heads, the output projection; each
+    rank's output is its heads' part, all-reduced over the model axis."""
+    rank, size = model_shard(x.device_mesh)
+    H, K = p["wq"].shape[1], p["wk"].shape[1]
+    q_split = H % size == 0
+    kv_split = q_split and K % size == 0
+    q_on = Shard(1) if q_split else Replicate()
+    kv_on = Shard(1) if kv_split else Replicate()
+
+    def local(x_l, s_l, wq, wk, wv, wo):
+        q, k, v = _qkv({"wq": wq, "wk": wk, "wv": wv}, x_l, s_l)
+        q, k = rope(q), rope(k)
+        if q_split and not kv_split:
+            n = q.shape[2]
+            heads = (rank * n + torch.arange(n, device=q.device)) // (H // K)
+            k, v = k[:, :, heads], v[:, :, heads]
+        return torch.einsum("bshk,hkd->bsd", core(q, k, v),
+                            wo.to(x_l.dtype))
+
+    out = region(local, [act_in(x), act_in(src), weight_in(p["wq"], q_on),
+                         weight_in(p["wk"], kv_on), weight_in(p["wv"], kv_on),
+                         weight_in(p["wo"], Shard(0) if q_split
+                                   else Replicate())],
+                 Partial() if q_split else Replicate())
+    return out.redistribute(placements=batch_placements(x))
+
+
 # --------------------------------------------------------------- full seq
+def _causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      pos: torch.Tensor, cfg: ArchConfig,
+                      window: Optional[int], q_chunk: int) -> torch.Tensor:
+    """Causal (optionally windowed) GQA attention of q (B, S, H, hd) over
+    k, v (B, S, K, hd) at positions ``pos`` (S,), in chunks of ``q_chunk``
+    queries past that length."""
+    S = q.shape[1]
+    n_kv = k.shape[2]
+    if S <= q_chunk:
+        mask = _causal_window_mask(pos, pos, window)
+        probs = _softmax(_gqa_scores(q, k, n_kv), mask,
+                         cfg.attn_logit_softcap,
+                         cfg.attn_fp32_softmax).to(q.dtype)
+        return _gqa_out(probs, v)
+    assert S % q_chunk == 0, f"seq {S} not divisible by q_chunk {q_chunk}"
+    outs = []
+    for start in range(0, S, q_chunk):
+        mask = _causal_window_mask(pos[start:start + q_chunk], pos, window)
+        pr = _softmax(_gqa_scores(q[:, start:start + q_chunk], k, n_kv),
+                      mask, cfg.attn_logit_softcap,
+                      cfg.attn_fp32_softmax).to(q.dtype)
+        outs.append(_gqa_out(pr, v))
+    return torch.cat(outs, dim=1)
+
+
 def self_attention(p: Pytree, x: torch.Tensor, positions: torch.Tensor,
                    cfg: ArchConfig, window: Optional[int] = None,
                    q_chunk: int = 1024, return_kv: bool = False):
@@ -92,37 +169,29 @@ def self_attention(p: Pytree, x: torch.Tensor, positions: torch.Tensor,
     kernel; otherwise long sequences take the query dimension in chunks,
     so live buffers stay O(q_chunk · S) instead of O(S²).
     """
-    B, S, D = x.shape
+    def rope(t):
+        return apply_rope(t, positions, cfg.rope_fraction, cfg.rope_theta)
+
+    def core(q, k, v):
+        if cfg.use_pallas_attention:
+            # (B,S,H,hd) views as (B,H,S,hd): the kernel reads them in place
+            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True,
+                                window=window,
+                                softcap=cfg.attn_logit_softcap)
+            return o.transpose(1, 2).to(q.dtype)
+        return _causal_attention(q, k, v, positions[0], cfg, window, q_chunk)
+
+    if isinstance(x, DTensor):
+        if return_kv:
+            raise ValueError("return_kv (prefill) takes plain tensors")
+        # the region sees its rows of the batch, whose positions are all
+        # the same (0..S-1, transformer._positions): the first row's serve
+        positions = positions[:1]
+        return _attention_sharded(p, x, x, rope, core)
     q, k, v = _qkv(p, x)
-    q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
-
-    if cfg.use_pallas_attention:
-        # (B,S,H,hd) views as (B,H,S,hd): the kernel reads them in place
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True, window=window,
-                            softcap=cfg.attn_logit_softcap)
-        o = o.transpose(1, 2).to(x.dtype)
-    elif S <= q_chunk:
-        mask = _causal_window_mask(positions[0], positions[0], window)
-        probs = _softmax(_gqa_scores(q, k, cfg.n_kv_heads), mask,
-                         cfg.attn_logit_softcap,
-                         cfg.attn_fp32_softmax).to(x.dtype)
-        o = _gqa_out(probs, v)
-    else:
-        assert S % q_chunk == 0, f"seq {S} not divisible by q_chunk {q_chunk}"
-        outs = []
-        for start in range(0, S, q_chunk):
-            pos_c = positions[0, start:start + q_chunk]
-            mask = _causal_window_mask(pos_c, positions[0], window)
-            pr = _softmax(_gqa_scores(q[:, start:start + q_chunk], k,
-                                      cfg.n_kv_heads), mask,
-                          cfg.attn_logit_softcap,
-                          cfg.attn_fp32_softmax).to(x.dtype)
-            outs.append(_gqa_out(pr, v))
-        o = torch.cat(outs, dim=1)
-
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    q, k = rope(q), rope(k)
+    out = torch.einsum("bshk,hkd->bsd", core(q, k, v), p["wo"].to(x.dtype))
     if return_kv:
         return out, (k, v)
     return out
@@ -151,20 +220,28 @@ def kv_to_cache(k: torch.Tensor, v: torch.Tensor, window: Optional[int],
 
 
 # --------------------------------------------------------------- cross
+def _cross_core(q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+    """Queries (B, S, H, hd) over keys and values (B, P, K, hd), unmasked,
+    the softmax in fp32."""
+    scores = _gqa_scores(q, k, k.shape[2])
+    return _gqa_out(torch.softmax(scores.float(), dim=-1).to(q.dtype), v)
+
+
 def _cross(p: Pytree, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            cfg: ArchConfig) -> torch.Tensor:
     """Text queries of x (B, S, D) over the vision keys and values
     (B, P, K, hd), unmasked, the softmax in fp32."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    scores = _gqa_scores(q, k, cfg.n_kv_heads)
-    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-    o = _gqa_out(probs, v)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+    return torch.einsum("bshk,hkd->bsd", _cross_core(q, k, v),
+                        p["wo"].to(x.dtype))
 
 
 def cross_attention(p: Pytree, x: torch.Tensor, kv_feats: torch.Tensor,
                     cfg: ArchConfig) -> torch.Tensor:
     """Text queries attend over (unmasked) vision features (B, P, D)."""
+    if isinstance(x, DTensor):
+        return _attention_sharded(p, x, kv_feats, lambda t: t, _cross_core)
     k = torch.einsum("bpd,dhk->bphk", kv_feats, p["wk"].to(x.dtype))
     v = torch.einsum("bpd,dhk->bphk", kv_feats, p["wv"].to(x.dtype))
     return _cross(p, x, k, v, cfg)

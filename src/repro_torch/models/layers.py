@@ -10,7 +10,12 @@ import math
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from ..sharding.spmd import (act_in, batch_placements, model_dim,
+                             model_shard, region, split_on, weight_in)
 
 Pytree = Any
 
@@ -64,11 +69,31 @@ def activation(a: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def gated_mlp(p: Pytree, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """SwiGLU/GeGLU: down( act(x@wg) * (x@wu) )."""
+    """SwiGLU/GeGLU: down( act(x@wg) * (x@wu) ).  On DTensors a
+    ``local_map`` region, ``_gated_mlp_sharded``."""
+    if isinstance(x, DTensor):
+        return _gated_mlp_sharded(p, x, act)
     a = torch.einsum("...d,df->...f", x, p["wg"].to(x.dtype))
     u = torch.einsum("...d,df->...f", x, p["wu"].to(x.dtype))
     h = activation(a, act) * u
     return torch.einsum("...f,fd->...d", h, p["wd"].to(x.dtype))
+
+
+def _gated_mlp_sharded(p: Pytree, x: DTensor, act: str) -> DTensor:
+    """``gated_mlp`` of DTensor ``x`` as a ``local_map`` region, in the
+    layout the specs give its weights: d_ff split over the model axis
+    (wg, wu by columns, wd by rows; each rank's output its columns' part,
+    all-reduced over the axis), the weights gathered over the data axes.
+    Weights not split over the model axis run whole on every rank."""
+    col = split_on(p["wg"], 1)
+    row = Shard(0) if col == Shard(1) else Replicate()
+    out = region(
+        lambda x_l, wg, wu, wd: gated_mlp({"wg": wg, "wu": wu, "wd": wd},
+                                          x_l, act),
+        [act_in(x), weight_in(p["wg"], col), weight_in(p["wu"], col),
+         weight_in(p["wd"], row)],
+        Partial() if col == Shard(1) else Replicate())
+    return out.redistribute(placements=batch_placements(x))
 
 
 # ----------------------------------------------------------------- RoPE
@@ -119,6 +144,12 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     impl='logsumexp' avoids materialising the full fp32 log-softmax tensor
     (nll = logsumexp(logits) − logits[target]); mathematically identical.
     """
+    if isinstance(logits, DTensor):
+        nll = _vocab_parallel_nll(logits, targets)
+        if mask is not None:
+            return torch.sum(nll * mask) / torch.clamp(torch.sum(mask),
+                                                       min=1.0)
+        return torch.mean(nll)
     lf = logits.float()
     idx = targets[..., None].long()
     if impl == "logsumexp":
@@ -130,3 +161,58 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of x, that dim split over the
+    ranks of ``group`` (None: whole here), in torch's own arithmetic: the
+    max (its infinities taken as 0), the sum of exp of the difference,
+    log plus max, the max and the sum all-reduced over the group; the
+    backward is torch's too, grad·exp(x − lse), on each rank's part.  So
+    on one rank it equals ``torch.logsumexp`` bit for bit, forward and
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        top = x.amax(dim=-1, keepdim=True)
+        if group is not None:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        top = top.masked_fill(top.abs() == math.inf, 0.0)
+        total = (x - top).exp().sum(dim=-1)
+        if group is not None:
+            dist.all_reduce(total, group=group)
+        lse = total.log().add(top[..., 0])
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse = ctx.saved_tensors
+        return grad[..., None] * (x - lse[..., None]).exp(), None
+
+
+def _vocab_parallel_nll(logits: DTensor, targets) -> DTensor:
+    """Token CE of DTensor logits (..., V), in fp32, as a ``local_map``
+    region over the vocab's shards on the model axis: the logsumexp of
+    all shards (``_LogSumExp``: the max and the sum of exp all-reduced
+    over the axis), minus the target's logit, taken where a rank's shard
+    holds it (0 elsewhere) and summed over the axis.  Logits not sharded
+    on their vocab dim over the model axis take the same path whole."""
+    mesh = logits.device_mesh
+    vocab = split_on(logits, logits.dim() - 1)
+    sharded = vocab != Replicate()
+    group = mesh.get_group(model_dim(mesh)) if sharded else None
+    rank, _ = model_shard(mesh)
+
+    def local(lf, t):
+        lf = lf.float()
+        n = lf.shape[-1]
+        idx = t.long() - rank * n if sharded else t.long()
+        inside = (idx >= 0) & (idx < n)
+        picked = torch.take_along_dim(lf, idx.clamp(0, n - 1)[..., None],
+                                      dim=-1)[..., 0]
+        return _LogSumExp.apply(lf, group), torch.where(inside, picked, 0.0)
+
+    lse, picked = region(local, [act_in(logits, vocab), act_in(targets)],
+                         (Replicate(), Partial() if sharded else Replicate()))
+    return lse - picked.redistribute(placements=batch_placements(logits))

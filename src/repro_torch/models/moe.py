@@ -12,11 +12,15 @@ Covers: llama4-maverick (128e top-1 + shared dense expert) and arctic
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..sharding.spmd import (act_in, batch_placements, model_shard, region,
+                             split_on, weight_in)
 from .config import ArchConfig
 from .layers import activation, gated_mlp, gated_mlp_init, he_init
 
@@ -94,25 +98,72 @@ def _experts(p: Pytree, xg: torch.Tensor, dispatch: torch.Tensor,
     return combine.to(dt).reshape(g, E * C) @ expert_out.reshape(E * C, -1)
 
 
-def moe_block(p: Pytree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x: (B, S, D) → (B, S, D).  Tokens in groups of
-    ``cfg.moe_group_size``, the last padded with zero rows; experts dense."""
+def _routed(p: Pytree, x: torch.Tensor, cfg: ArchConfig, group: int,
+            first: int = 0) -> torch.Tensor:
+    """The routed experts' output for x (B, S, D): tokens in groups of
+    ``group``, the last padded with zero rows.  ``p``'s expert stacks may
+    hold a slice of the experts, from expert ``first`` on (the router
+    always holds all of them): the result is then that slice's part of
+    the sum."""
     B, S, D = x.shape
     T = B * S
     flat = x.reshape(T, D)
-    g = min(cfg.moe_group_size, T)
-    n_groups = -(-T // g)
-    pad = n_groups * g - T
+    n_groups = -(-T // group)
+    pad = n_groups * group - T
     if pad:
         flat = torch.cat([flat, flat.new_zeros((pad, D))])
-    capacity = _capacity(g, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    capacity = _capacity(group, cfg.top_k, cfg.n_experts,
+                         cfg.capacity_factor)
     router = p["router"].float()
+    held = slice(first, first + p["wg"].shape[0])
     ys = []
-    for xg in flat.reshape(n_groups, g, D):
+    for xg in flat.reshape(n_groups, group, D):
         logits = xg.float() @ router                       # (g, E)
         dispatch, combine = _dispatch_combine(logits, cfg.top_k, capacity)
-        ys.append(_experts(p, xg, dispatch, combine, cfg.act))
-    y = torch.cat(ys)[:T].reshape(B, S, D)
+        ys.append(_experts(p, xg, dispatch[:, held], combine[:, held],
+                           cfg.act))
+    return torch.cat(ys)[:T].reshape(B, S, D)
+
+
+def _routed_sharded(p: Pytree, x: DTensor, cfg: ArchConfig,
+                    group: int) -> DTensor:
+    """``_routed`` of DTensors as a ``local_map`` region.  Each rank
+    routes whole groups, so every capacity slot comes out as in the
+    unsharded block: its own batch shard's groups when the groups tile the
+    shard, else (a group spans shards) every group, the tokens gathered
+    first.  The experts are sharded over the model axis on their E dim:
+    each rank runs its own experts on the slots routed to them, and the
+    parts are summed over the axis."""
+    mesh = x.device_mesh
+    rows = batch_placements(x)
+    shards = math.prod(mesh.size(i) for i, pl in enumerate(rows)
+                       if isinstance(pl, Shard))
+    if (x.shape[0] * x.shape[1] // shards) % group:
+        rows = (Replicate(),) * mesh.ndim
+    rank, _ = model_shard(mesh)
+    experts = split_on(p["wg"], 0)
+    keys = ("router", "wg", "wu", "wd")
+
+    def local(x_l, *weights):
+        first = rank * weights[1].shape[0] if experts != Replicate() else 0
+        return _routed(dict(zip(keys, weights)), x_l, cfg, group, first)
+
+    return region(local, [act_in(x), weight_in(p["router"])]
+                  + [weight_in(p[k], experts) for k in keys[1:]],
+                  Partial() if experts != Replicate() else Replicate(),
+                  rows=rows)
+
+
+def moe_block(p: Pytree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x: (B, S, D) → (B, S, D).  Tokens in groups of
+    ``cfg.moe_group_size``, the last padded with zero rows; experts dense.
+    DTensors (the sharded train step) route in a ``local_map`` region."""
+    group = min(cfg.moe_group_size, x.shape[0] * x.shape[1])
+    if isinstance(x, DTensor):
+        y = _routed_sharded(p, x, cfg, group)
+        y = y.redistribute(placements=batch_placements(x))
+    else:
+        y = _routed(p, x, cfg, group)
     if cfg.parallel_dense_mlp:
         y = y + gated_mlp(p["dense"], x, cfg.act)
     return y

@@ -16,8 +16,10 @@ from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
-from ..kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from ..kernels.ssd_scan import ssd_scan, ssd_scan_plain, ssd_scan_sharded
+from ..sharding.spmd import act_in, region, weight_in
 from .config import ArchConfig
 from .layers import he_init, rms_norm
 
@@ -74,7 +76,13 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal 1-d conv. xbc: (B, S, C); w: (C, K)."""
+    """Depthwise causal 1-d conv. xbc: (B, S, C); w: (C, K).  On DTensors
+    a ``local_map`` region over each rank's rows of the batch, the weights
+    whole: some PyTorch releases place the padding of a tensor on a 2-d
+    mesh with one placement too few."""
+    if isinstance(xbc, DTensor):
+        return region(_causal_conv, [act_in(xbc), weight_in(w), weight_in(b)],
+                      Replicate())
     K = w.shape[1]
     pad = F.pad(xbc, (0, 0, K - 1, 0))
     y = _conv_unrolled(pad, w, K)
@@ -131,7 +139,9 @@ def mamba_block(p: Pytree, x: torch.Tensor, cfg: ArchConfig,
     ck = min(chunk, S)
     while S % ck:
         ck -= 1
-    y, final_state = ssd_scan(xh * dt[..., None].to(x.dtype),
+    # DTensors (the sharded train step) scan in a local_map region
+    scan = ssd_scan_sharded if isinstance(xh, DTensor) else ssd_scan
+    y, final_state = scan(xh * dt[..., None].to(x.dtype),
                               A[None, None, :] * dt, Bh, Ch, chunk=ck,
                               return_state=True)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]

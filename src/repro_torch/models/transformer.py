@@ -34,15 +34,20 @@ Entry points:
 
 Params live on the device of the ``torch.Generator`` that made them (or of
 the tensors loaded with ``convert.params_from_numpy``); batches and caches
-live beside them.  ``decode_step`` writes the new token's keys and values,
-and the Mamba blocks' conv windows and SSM states, into the cache tensors
-in place.
+live beside them.  The train path also takes DTensor params and batches
+(launch/sharded.py): the vocab-parallel embedding and head here, the loss
+in models/layers.py, and the blocks' regions in their modules run as
+``local_map`` regions over the model axis (sharding/spmd.py); the rest is
+DTensor's.  ``decode_step`` writes the new token's keys and values, and
+the Mamba blocks' conv windows and SSM states, into the cache tensors in
+place.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..core.flatten import tree_leaves, tree_map
@@ -55,6 +60,8 @@ from .layers import (cross_entropy_loss, dtype_of, embed_init, gated_mlp,
                      gated_mlp_init, he_init, rms_norm, softcap)
 from .moe import moe_block, moe_init
 from .ssm import init_mamba_cache, mamba_block, mamba_decode_step, mamba_init
+from ..sharding.spmd import (act_in, batch_placements, model_shard, region,
+                             split_on, unsharded_on, weight_in)
 
 Pytree = Any
 
@@ -67,8 +74,9 @@ def _unstack(tree: Pytree, n: int) -> list:
     """The ``n`` superblocks of a tree stacked on its leading axis, as
     views.  Under autograd one ``unbind`` a leaf stacks the superblocks'
     grads once; indexing each superblock would add a zero-filled tensor
-    of the whole stack a superblock."""
-    parts = tree_map(lambda t: t.unbind(0), tree)
+    of the whole stack a superblock.  A DTensor stack sharded on its
+    leading axis is gathered there first."""
+    parts = tree_map(lambda t: unsharded_on(t, 0).unbind(0), tree)
     return [tree_map(lambda p: p[s], parts) for s in range(n)]
 
 
@@ -103,32 +111,60 @@ def _block_init(gen: torch.Generator, kind: str, cfg: ArchConfig,
     return p
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator) -> Pytree:
+def _placed(place, tree: Pytree, path: Tuple[str, ...],
+            lead: Tuple[int, ...] = ()) -> Pytree:
+    """``place(path, leaf, lead)`` of each leaf of ``tree`` (a dict of
+    leaves, or a leaf) under ``path``; ``place`` None keeps the tree."""
+    if place is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _placed(place, v, path + (k,), lead)
+                for k, v in tree.items()}
+    return place(path, tree, lead)
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator,
+                place=None) -> Pytree:
     """Random params from ``gen``, on ``gen``'s device, in
-    ``cfg.param_dtype``, with the reference's keys and shapes."""
+    ``cfg.param_dtype``, with the reference's keys and shapes.
+    ``place(path, leaf, lead)``, if given, lays each leaf out (as a
+    DTensor, launch/sharded.py) as soon as its block is made, before the
+    next block is drawn: ``lead`` is the stack dims the leaf will sit
+    under ((n_super,) in ``params["blocks"]``), and stacking keeps the
+    layout; each stack is offered to ``place`` again (``lead`` empty) for
+    a leaf it left as it was.  The draws and their order do not
+    change."""
     dtype = dtype_of(cfg.param_dtype)
     D, V = cfg.d_model, cfg.vocab
     embed_shape = (cfg.n_codebooks, V, D) if cfg.n_codebooks else (V, D)
-    params: Dict[str, Any] = {"embed": embed_init(gen, embed_shape, dtype)}
+    params: Dict[str, Any] = {"embed": _placed(
+        place, embed_init(gen, embed_shape, dtype), ("embed",))}
     blocks: Dict[str, Any] = {}
     for i, kind in enumerate(cfg.pattern):
         if kind == "shared_attn":
             continue
-        blocks[f"pos{i}"] = _stack([_block_init(gen, kind, cfg, dtype,
-                                                cfg.use_moe(i))
-                                    for _ in range(cfg.n_super)])
+        path = ("blocks", f"pos{i}")
+        blocks[f"pos{i}"] = _placed(place, _stack([
+            _placed(place, _block_init(gen, kind, cfg, dtype,
+                                       cfg.use_moe(i)), path, (cfg.n_super,))
+            for _ in range(cfg.n_super)]), path)
     params["blocks"] = blocks
-    rem = {f"pos{i}": _block_init(gen, cfg.pattern[i], cfg, dtype,
-                                  cfg.use_moe(i))
+    rem = {f"pos{i}": _placed(place, _block_init(gen, cfg.pattern[i], cfg,
+                                                 dtype, cfg.use_moe(i)),
+                              ("rem", f"pos{i}"))
            for i in _layer_positions(cfg)[:cfg.n_rem]}
     if rem:
         params["rem"] = rem
     if "shared_attn" in cfg.pattern:
-        params["shared_attn"] = _block_init(gen, "attn", cfg, dtype)
-    params["final_norm"] = torch.zeros((D,), dtype=dtype, device=gen.device)
+        params["shared_attn"] = _placed(
+            place, _block_init(gen, "attn", cfg, dtype), ("shared_attn",))
+    params["final_norm"] = _placed(
+        place, torch.zeros((D,), dtype=dtype, device=gen.device),
+        ("final_norm",))
     if not cfg.tie_embeddings:
-        params["head"] = he_init(gen, (D, V * max(1, cfg.n_codebooks)), D,
-                                 dtype)
+        params["head"] = _placed(
+            place, he_init(gen, (D, V * max(1, cfg.n_codebooks)), D, dtype),
+            ("head",))
     return params
 
 
@@ -193,6 +229,8 @@ def _superblock(params_i: Pytree, shared: Optional[Pytree], x: torch.Tensor,
 # ============================================================ embeddings
 def _embed(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
            dtype) -> torch.Tensor:
+    if isinstance(params["embed"], DTensor):
+        return _vocab_parallel_embed(params["embed"], tokens).to(dtype)
     if cfg.n_codebooks:
         # tokens (B, n_cb, S) → the sum of per-codebook embeddings
         embs = [params["embed"][c][tokens[:, c, :].long()]
@@ -201,7 +239,60 @@ def _embed(cfg: ArchConfig, params: Pytree, tokens: torch.Tensor,
     return params["embed"][tokens.long()].to(dtype)
 
 
+def _vocab_parallel_embed(table: DTensor, tokens) -> DTensor:
+    """The embedding lookup of DTensor ``table`` ((V, D), or (n_cb, V, D)
+    with (B, n_cb, S) tokens summed over codebooks) as a ``local_map``
+    region over its vocab shards on the model axis: each rank looks up the
+    ids inside its shard, zero for the rest, and the rows are all-reduced
+    over the axis."""
+    vocab = split_on(table, table.dim() - 2)
+    sharded = vocab != Replicate()
+    rank, _ = model_shard(table.device_mesh)
+
+    def local(tok, tab):
+        n = tab.shape[-2]
+        idx = tok.long() - rank * n if sharded else tok.long()
+        inside = (idx >= 0) & (idx < n)
+        idx = idx.clamp(0, n - 1)
+        if tab.dim() == 3:          # codebooks: (B, n_cb, S) ids
+            picked = [tab[c][idx[:, c, :]] * inside[:, c, :, None]
+                      for c in range(tab.shape[0])]
+            return sum(picked)
+        return tab[idx] * inside[..., None]
+
+    out = region(local, [act_in(tokens), weight_in(table, vocab)],
+                 Partial() if sharded else Replicate())
+    return out.redistribute(placements=batch_placements(out))
+
+
+def _vocab_parallel_head(h: DTensor, weight: DTensor, tied: bool) -> DTensor:
+    """``h`` (B, S, D) against the vocab-sharded ``weight`` (the untied
+    head (D, V'), the tied table (V, D) or (n_cb, V, D)) as a ``local_map``
+    region: each rank makes the logits of its own vocab shard, (B, S, V /
+    m) or (B, S, n_cb, V / m), which stay sharded on the model axis."""
+    vocab = split_on(weight, weight.dim() - 2 if tied else weight.dim() - 1)
+
+    def local(x, w):
+        w = w.to(x.dtype)
+        if not tied:
+            return torch.einsum("bsd,dv->bsv", x, w)
+        if w.dim() == 3:
+            return torch.einsum("bsd,cvd->bscv", x, w)
+        return torch.einsum("bsd,vd->bsv", x, w)
+
+    out_dim = 2 if weight.dim() == 2 else 3
+    return region(local, [act_in(h), weight_in(weight, vocab)],
+                  Shard(out_dim) if vocab != Replicate() else Replicate())
+
+
 def _logits(cfg: ArchConfig, params: Pytree, h: torch.Tensor) -> torch.Tensor:
+    if isinstance(h, DTensor):
+        tied = cfg.tie_embeddings or "head" not in params
+        out = _vocab_parallel_head(h, params["embed"] if tied
+                                   else params["head"], tied)
+        if out.dim() == 4:
+            out = out.reshape(*h.shape[:2], cfg.n_codebooks * cfg.vocab)
+        return softcap(out, cfg.final_logit_softcap)
     if not cfg.tie_embeddings and "head" in params:
         out = torch.einsum("bsd,dv->bsv", h, params["head"].to(h.dtype))
     elif cfg.n_codebooks:
@@ -283,26 +374,32 @@ def grads_of(cfg: ArchConfig, params: Pytree,
              batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Pytree]:
     """``(loss, grads)`` of ``loss_fn`` at ``params``, the grads a tree
     shaped like it (zeros for a param the loss does not reach), as
-    ``jax.value_and_grad`` gives them; the loss is detached."""
+    ``jax.value_and_grad`` gives them; the loss is detached.  DTensor
+    params get grads with their own placements."""
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss = loss_fn(cfg, live, batch)
         leaves = tree_leaves(live)
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-    by_leaf = dict(zip(map(id, leaves), grads))
+    # a DTensor's grad comes out laid out as its last op left it: lay it
+    # out as its param
+    by_leaf = {id(p): g.redistribute(p.device_mesh, p.placements)
+               if isinstance(g, DTensor) else g
+               for p, g in zip(leaves, grads)}
     return loss.detach(), tree_map(lambda t: by_leaf[id(t)], live)
 
 
 def make_train_step(cfg: ArchConfig):
-    """Returns ``(train_step, init_state)``.  ``init_state(gen)`` → state
-    ``{"params", "opt"}`` on ``gen``'s device; ``train_step(state, batch)``
+    """Returns ``(train_step, init_state)``.  ``init_state(gen, place=None)``
+    → state ``{"params", "opt"}`` on ``gen``'s device (``place`` as
+    ``init_params`` takes it); ``train_step(state, batch)``
     → ``(state, loss)``: one step of ``cfg.optimizer`` at
     ``cfg.learning_rate`` on ``loss_fn``'s grads, the loss a 0-d tensor on
     the device (no host sync)."""
     optimizer = make_optimizer(cfg.optimizer, cfg.learning_rate)
 
-    def init_state(gen: torch.Generator) -> Pytree:
-        params = init_params(cfg, gen)
+    def init_state(gen: torch.Generator, place=None) -> Pytree:
+        params = init_params(cfg, gen, place)
         return {"params": params, "opt": optimizer.init(params)}
 
     def train_step(state: Pytree, batch: Dict[str, torch.Tensor]

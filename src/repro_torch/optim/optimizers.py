@@ -8,6 +8,11 @@ Functional API mirroring optax: ``init(params) -> state``,
 
 FedProx support: `proximal_grad` adds mu * (w - w_global) to the gradient,
 which is the gradient of the paper's proximal term mu/2 ||w - w_global||^2.
+
+DTensor params (the sharded train step) get DTensor moments laid out as
+the params, and the elementwise passes of ``sgd``, ``adam`` and
+``apply_updates`` run on each rank's local shards (``_on_shards``): grads,
+moments and params of a leaf share one layout, so no pass communicates.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core.flatten import tree_leaves, tree_map
 
@@ -26,16 +32,40 @@ class Optimizer(NamedTuple):
     update: Callable[[Pytree, Pytree, Pytree], Tuple[Pytree, Pytree]]
 
 
+def _on_shards(fn: Callable[..., torch.Tensor]) -> Callable:
+    """``fn`` of tensors, run on the local shards when its first argument
+    is a DTensor (every DTensor argument laid out as it), the result laid
+    out as that argument; plain tensors pass through."""
+    def run(lead, *rest):
+        if not isinstance(lead, DTensor):
+            return fn(lead, *rest)
+        for t in rest:
+            if isinstance(t, DTensor) and t.placements != lead.placements:
+                raise ValueError(f"{t.placements} against {lead.placements}:"
+                                 f" a leaf's grad, moments and param must "
+                                 f"share a layout")
+        out = fn(lead.to_local(), *(t.to_local() if isinstance(t, DTensor)
+                                    else t for t in rest))
+        return DTensor.from_local(out, lead.device_mesh, lead.placements,
+                                  shape=lead.shape, stride=lead.stride())
+    return run
+
+
 def apply_updates(params: Pytree, updates: Pytree) -> Pytree:
-    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+    return tree_map(_on_shards(lambda p, u: p + u.to(p.dtype)), params,
+                    updates)
 
 
 def zeros_like_f32(params: Pytree) -> Pytree:
-    """fp32 moment buffers shaped like `params` (mixed-precision training
-    and the server-side merge pipeline keep fp32 optimizer state even
-    when the params themselves are lower precision)."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """fp32 moment buffers shaped (and, for DTensors, laid out) like
+    `params` (mixed-precision training and the server-side merge pipeline
+    keep fp32 optimizer state even when the params themselves are lower
+    precision)."""
+    def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return tree_map(zeros, params)
 
 
 # --------------------------------------------------------------------------
@@ -50,11 +80,12 @@ def sgd(learning_rate: float, momentum: float = 0.0) -> Optimizer:
     def update(grads, state, params=None):
         del params
         if momentum == 0.0:
-            updates = tree_map(lambda g: -learning_rate * g.float(), grads)
+            updates = tree_map(_on_shards(lambda g: -learning_rate
+                                          * g.float()), grads)
             return updates, {"count": state["count"] + 1}
-        vel = tree_map(lambda v, g: momentum * v + g.float(),
+        vel = tree_map(_on_shards(lambda v, g: momentum * v + g.float()),
                        state["velocity"], grads)
-        updates = tree_map(lambda v: -learning_rate * v, vel)
+        updates = tree_map(_on_shards(lambda v: -learning_rate * v), vel)
         return updates, {"count": state["count"] + 1, "velocity": vel}
 
     return Optimizer(init, update)
@@ -76,10 +107,11 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     def update(grads, state, params):
         count = state["count"] + 1
         cf = np.float32(count)
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
-                     state["m"], grads)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(
-            g.float()), state["v"], grads)
+        m = tree_map(_on_shards(lambda m_, g: b1 * m_ + (1 - b1)
+                                * g.float()), state["m"], grads)
+        v = tree_map(_on_shards(lambda v_, g: b2 * v_ + (1 - b2)
+                                * torch.square(g.float())),
+                     state["v"], grads)
         bc1 = float(np.float32(1) - np.float32(b1) ** cf)
         bc2 = float(np.float32(1) - np.float32(b2) ** cf)
 
@@ -89,7 +121,7 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
                 upd = upd - learning_rate * weight_decay * p.float()
             return upd
 
-        updates = tree_map(step, m, v, params)
+        updates = tree_map(_on_shards(step), m, v, params)
         return updates, {"count": count, "m": m, "v": v}
 
     return Optimizer(init, update)

@@ -23,17 +23,28 @@ key paths, shapes and a mesh's ``.shape`` (axis name → size):
 A dim that does not divide falls through to the next candidate or stays
 replicated.  A spec is a ``PartitionSpec``: a tuple with one entry a dim,
 ``None``, an axis name or a tuple of names, equal to the JAX package's
-``PartitionSpec`` with the same entries.  The port has no SPMD
-partitioner, so nothing places a tensor by these specs: ``shard_shape``
-gives the per-device shape a spec implies, which the dry run
-(launch/dryrun.py) counts.  Path names are the nested dict keys of the
-port's trees, which keep the reference's keys (convert.py).
+``PartitionSpec`` with the same entries.  ``shard_shape`` gives the
+per-device shape a spec implies, which the dry run (launch/dryrun.py)
+counts.  Path names are the nested dict keys of the port's trees, which
+keep the reference's keys (convert.py).
+
+The port's SPMD partitioner is DTensor (``torch.distributed.tensor``) over
+a ``DeviceMesh`` with the same axis names (launch/mesh.py
+``to_device_mesh``).  ``to_named`` turns each spec into the placements it
+implies, one a mesh dim: ``Shard(d)`` on every axis that names tensor dim
+``d``, ``Replicate()`` on the others; ``place`` lays a tree out by them
+and ``gather`` brings it back whole.  Every dim the rules shard divides
+its axes' product, so each rank's local shape is ``shard_shape``.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, List, Sequence, Tuple
+
+import torch
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 Pytree = Any
 
@@ -327,10 +338,91 @@ def logits_spec(mesh) -> PartitionSpec:
 def shard_shape(shape: Sequence[int], spec: Sequence, mesh) -> Tuple[int, ...]:
     """The per-device shape of a tensor of ``shape`` laid out by ``spec``
     on ``mesh``: each sharded dim divided by its axes' product (rounded
-    up, as a padded shard would be).  Stands in for the reference's
-    ``to_named``: the port has no SPMD partitioner to place by a spec."""
+    up, as a padded shard would be)."""
     out = list(shape)
     for i, axis in enumerate(spec):
         n = _axis_size(mesh, axis)
         out[i] = -(-out[i] // n)
     return tuple(out)
+
+
+# ------------------------------------------------------------------ placement
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a ``DeviceMesh``, the counterpart of
+    ``jax.sharding.NamedSharding``: ``placements`` are DTensor's, one a
+    mesh dim."""
+    mesh: Any
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        return placements_of(self.spec, self.mesh.mesh_dim_names)
+
+
+def placements_of(spec: Sequence, axis_names: Sequence[str]) -> tuple:
+    """The DTensor placements ``spec`` implies on a mesh whose dims are
+    ``axis_names``: ``Shard(d)`` on each axis that names tensor dim ``d``,
+    ``Replicate()`` on the rest.  An entry of several axes shards its dim
+    over each of them, the first named the outer split, as JAX splits it;
+    DTensor splits a dim over mesh dims in mesh order, so such an entry
+    must name its axes in that order."""
+    names = tuple(axis_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = (() if entry is None else (entry,) if isinstance(entry, str)
+                else tuple(entry))
+        missing = [a for a in axes if a not in names]
+        if missing:
+            raise ValueError(f"{spec} names axes {missing} that the mesh "
+                             f"{names} lacks")
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec} splits dim {dim} over {axes}, against "
+                             f"the mesh's order {names}")
+        for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"{spec} shards two dims over {names[i]!r}")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def _map_specs(fn: Callable[[Any], Any], tree):
+    """``tree`` with each ``PartitionSpec`` leaf replaced by ``fn`` of it."""
+    if isinstance(tree, PartitionSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_specs(fn, v) for v in tree)
+    return fn(tree)
+
+
+def to_named(tree_specs: Pytree, device_mesh) -> Pytree:
+    """Each spec of ``tree_specs`` as a ``NamedSharding`` on
+    ``device_mesh``, the reference's ``to_named``."""
+    return _map_specs(lambda s: NamedSharding(device_mesh, s), tree_specs)
+
+
+def place(tree: Pytree, shardings: Pytree) -> Pytree:
+    """``tree``'s tensors as DTensors laid out by the matching
+    ``NamedSharding`` of ``shardings``; a host scalar (the optimizer's step
+    count, spec ``()``) stays as it is.  Every rank holds the same whole
+    tensor (made from the same seed), so each keeps its own shard and
+    nothing is sent."""
+    def one(leaf, sh):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return distribute_tensor(leaf, sh.mesh, sh.placements,
+                                 src_data_rank=None)
+
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    return one(tree, shardings)
+
+
+def gather(tree: Pytree) -> Pytree:
+    """``tree`` with every DTensor gathered whole onto each rank."""
+    if isinstance(tree, dict):
+        return {k: gather(v) for k, v in tree.items()}
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree

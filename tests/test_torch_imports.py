@@ -43,7 +43,8 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.analysis.__main__, repro_torch.analysis.rules, "
             "repro_torch.analysis.rules.determinism, "
             "repro_torch.analysis.rules.torch_safety, "
-            "repro_torch.analysis.rules.contracts\n"
+            "repro_torch.analysis.rules.contracts, "
+            "repro_torch.launch.sharded, repro_torch.sharding.spmd\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]\n"
@@ -81,7 +82,8 @@ def test_no_source_imports_jax_or_repro():
                    "analysis/rules/__init__.py",
                    "analysis/rules/determinism.py",
                    "analysis/rules/torch_safety.py",
-                   "analysis/rules/contracts.py"):
+                   "analysis/rules/contracts.py", "launch/sharded.py",
+                   "sharding/spmd.py"):
         assert PORT / module in files, module
     for path in files:
         for name in _imported_modules(path):
@@ -130,9 +132,6 @@ NOT_PORTED = {
                           "GATE002 keeps it so"},
     "kernels": {"ref": "the *_plain version beside each kernel plays "
                        "kernels/ref.py's role"},
-    "sharding": {"to_named": "the port has no NamedSharding and no SPMD "
-                             "partitioner; shard_shape gives the per-device "
-                             "shape a spec implies"},
 }
 
 

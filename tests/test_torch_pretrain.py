@@ -163,7 +163,10 @@ def test_port_reads_a_jax_train_checkpoint(tmp_path):
     assert np.isfinite(float(loss))
 
 
-def test_production_mesh_is_not_ported():
+def test_production_mesh_needs_256_ranks():
+    """--production-mesh on one rank (no process group) raises the
+    ValueError that names the 256 ranks the (16, 16) mesh needs."""
     res = _run_pretrain("--device", "cpu", "--production-mesh")
     assert res.returncode != 0
-    assert "NotImplementedError" in res.stderr and "1.9" in res.stderr
+    assert "ValueError" in res.stderr and "256 ranks" in res.stderr
+    assert "NotImplementedError" not in res.stderr
