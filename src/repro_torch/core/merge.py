@@ -45,11 +45,12 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels.fed_agg import fed_agg_apply, fed_agg_apply_sharded
 from ..optim.optimizers import zeros_like_f32
 from .aggregation import (ClientUpdate, aggregate, coefficient_tensor,
                           flat_update_matrix)
-from .flatten import flatten_params, tree_map
+from .flatten import flatten_params, tree_leaves, tree_map
 
 Pytree = Any
 
@@ -87,6 +88,19 @@ class ServerOptConfig:
                 and self.momentum == 0.0)
 
 
+def _wait_for_rows(update: ClientUpdate) -> None:
+    """The ``fl.device_wait`` span: with the update's rows on a card,
+    wait there for its stream, so that the merge's first blocking upload
+    does not hide the round's wait for the card (tracing on only)."""
+    if update.batch is not None:
+        device = update.batch.mat.device
+    else:
+        device = tree_leaves(update.params)[0].device
+    with tracing.span("fl.device_wait"):
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+
+
 class MergePipeline:
     """Delta-based merge: weighted sum → pseudo-gradient → server opt."""
 
@@ -120,6 +134,8 @@ class MergePipeline:
         if not updates:
             self.last_update_norm = 0.0
             return global_params
+        if tracing.enabled():
+            _wait_for_rows(updates[0])
         coeffs = np.asarray(coeffs, dtype=np.float64)
         if self.is_identity:
             self.last_update_norm = None    # not computed on this path

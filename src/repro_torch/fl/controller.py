@@ -50,6 +50,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from .. import tracing
 from ..core.history import ClientHistoryDB
 from ..core.strategies import Strategy
 from ..faas.cost import CostMeter
@@ -358,6 +359,11 @@ class TrainingDriver:
     def run_round(self, global_params: Pytree,
                   round_number: int) -> tuple:
         """One Train_Global_Model iteration. Returns (params, RoundStats)."""
+        with tracing.span("fl.round", round=round_number):
+            return self._barrier_round(global_params, round_number)
+
+    def _barrier_round(self, global_params: Pytree,
+                       round_number: int) -> tuple:
         if self.mode == "async":
             raise RuntimeError("run_round is a barrier API; the async mode "
                                "runs barrier-free — use run()")
@@ -493,13 +499,14 @@ class TrainingDriver:
         # --- aggregation runs at round close (virtual now) --------------
         self.strategy.on_round_close(round_number, now=close_time)
         updates = [c.update for c in successes if c.update is not None]
-        if self._agg_takes_global:
-            new_params = self.strategy.aggregate(
-                updates, round_number, now=close_time,
-                global_params=global_params)
-        else:                       # legacy pre-pipeline override
-            new_params = self.strategy.aggregate(updates, round_number,
-                                                 now=close_time)
+        with tracing.span("fl.aggregate"):
+            if self._agg_takes_global:
+                new_params = self.strategy.aggregate(
+                    updates, round_number, now=close_time,
+                    global_params=global_params)
+            else:                   # legacy pre-pipeline override
+                new_params = self.strategy.aggregate(updates, round_number,
+                                                     now=close_time)
         if new_params is None:
             new_params = global_params
         # wire-size telemetry for the aggregation record: every update the

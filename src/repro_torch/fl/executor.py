@@ -44,6 +44,7 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
+from .. import tracing
 from ..core.device_batch import DeviceUpdateBatch
 from ..core.flatten import flatten_params, tree_leaves, tree_map
 from ..optim import apply_updates, proximal_grad
@@ -167,10 +168,11 @@ class VectorizedExecutor:
             for st, (_, xs, ys, ms) in zip(states, slices):
                 grads, loss = step(st["params"], xs[:, t], ys[:, t],
                                    ms[:, t])
-                grads = proximal_grad(grads, st["params"], st["g"], mu)
-                updates, st["opt"] = optimizer.update(grads, st["opt"],
-                                                      st["params"])
-                st["params"] = apply_updates(st["params"], updates)
+                with tracing.span("fl.optimizer"):
+                    grads = proximal_grad(grads, st["params"], st["g"], mu)
+                    updates, st["opt"] = optimizer.update(grads, st["opt"],
+                                                          st["params"])
+                    st["params"] = apply_updates(st["params"], updates)
                 st["losses"].append(loss)
         return [(st["params"], torch.stack(st["losses"], dim=1).mean(dim=1))
                 for st in states]
@@ -198,8 +200,14 @@ class VectorizedExecutor:
         (rows ≥ len(cids) are pads), on the executor's home device: the
         task's device, or the first device of the mesh."""
         n_devices = 1 if self.mesh is None else self.mesh.size
-        xs, ys, ms = self._stage(datasets, seeds,
-                                 _bucket(len(cids), n_devices))
+        with tracing.span("fl.stage"):
+            xs, ys, ms = self._stage(datasets, seeds,
+                                     _bucket(len(cids), n_devices))
+            parts = ([(self.task.device, slice(None))] if self.mesh is None
+                     else shard_slices(xs.shape[0], self.mesh))
+            slices = [(dev, *(torch.from_numpy(a[rows]).to(dev)
+                              for a in (xs, ys, ms)))
+                      for dev, rows in parts]
         mesh_key = self._mesh_key()
         key = (mu, mesh_key, xs.shape, str(xs.dtype), ys.shape,
                str(ys.dtype))
@@ -207,12 +215,9 @@ class VectorizedExecutor:
             self._dispatch_keys.add(key)
             self._compile_counts[mesh_key] = \
                 self._compile_counts.get(mesh_key, 0) + 1
-        parts = ([(self.task.device, slice(None))] if self.mesh is None
-                 else shard_slices(xs.shape[0], self.mesh))
-        slices = [(dev, *(torch.from_numpy(a[rows]).to(dev)
-                          for a in (xs, ys, ms)))
-                  for dev, rows in parts]
-        trained = self._train_slices(global_params, slices, float(mu))
+        tracing.count("fl.local_steps", xs.shape[1])
+        with tracing.span("fl.steps"):
+            trained = self._train_slices(global_params, slices, float(mu))
         if len(trained) == 1:
             return trained[0]
         home = parts[0][0]

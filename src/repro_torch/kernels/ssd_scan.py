@@ -280,6 +280,7 @@ class _SSDScan(torch.autograd.Function):
             outs = ssd_scan_plain(*inputs, ctx.chunk, return_state=True)
             return tuple(outs[i] for i in used)
 
+        # registered in tracing.SPANS; opened whether tracing is on or not
         with torch.profiler.record_function("ssd_scan_plain_backward"):
             _, vjp_fn = torch.func.vjp(plain, *(saved[i] for i in wrt))
             grads = iter(vjp_fn(tuple((gy, gstate)[i] for i in used)))

@@ -50,6 +50,7 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..core.flatten import tree_leaves, tree_map
 from ..optim import apply_updates, make_optimizer
 from .attention import (attn_init, cross_attention, decode_cross_attention,
@@ -405,8 +406,10 @@ def make_train_step(cfg: ArchConfig):
     def train_step(state: Pytree, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Pytree, torch.Tensor]:
         loss, grads = grads_of(cfg, state["params"], batch)
-        updates, opt = optimizer.update(grads, state["opt"], state["params"])
-        params = apply_updates(state["params"], updates)
+        with tracing.span("train.optimizer", step=state["opt"].get("count")):
+            updates, opt = optimizer.update(grads, state["opt"],
+                                            state["params"])
+            params = apply_updates(state["params"], updates)
         return {"params": params, "opt": opt}, loss
 
     return train_step, init_state
