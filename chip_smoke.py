@@ -46,7 +46,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    one configuration must agree per round (cohorts, EUR, trace bytes),
    and in training loss and params within the spread that rounding alone
    caused in the measured runs (FL_LOSS_RTOL, FL_PARAM_REL_L2).  The
-   launch counts are set to 0 just before each run and read just after;
+   launch counts are set to 0 just before each run and read just after
+   (every run's ``adam`` launches must equal its optimizer steps times
+   the tree's launches a step: a client's step on the eager loop, each
+   mesh slot's slice a step on the executor, none with SGD);
    the compressed runs' traces must carry the codec's compression ratio
    in every merge.  Then one client's local training
    and one vectorized round under torch.profiler: device operations a
@@ -162,15 +165,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    llama4-maverick-400b-a17b (bf16 params, 2 layers: one dense, one MoE;
    top-1; the expert count the largest whose predicted peak stays under
    DRY_PEAK_BUDGET, chosen by the dry run before the card runs), 20 Adam
-   steps each, losses finite and falling, no kernel launched (attention
-   under autograd runs its plain version).  Gates: the argument bytes
+   steps each, losses finite and falling, no kernel launched but the
+   optimizer's ``adam`` (attention under autograd runs its plain
+   version).  Gates: the argument bytes
    equal the bytes of the state and batch the run holds; the measured
    step time is at least the prediction's compute_s; the predicted peak
-   over torch.cuda.max_memory_allocated() lies in DRY_PEAK_RATIO; in a
-   run that launches no kernel, the predicted FLOPs equal
-   FlopCounterMode's over one extra untimed step on the card within
-   DRY_FLOP_RTOL.  Where a step launches ssd_scan or flash_attention the
-   card's count misses the kernels' work: the gap is printed.
+   over torch.cuda.max_memory_allocated() lies in DRY_PEAK_RATIO (the
+   fake run's Adam step is ``adam_plain``, whose passes run in slices so
+   that, as the kernel's, they hold little beside the new params and
+   moments); in a run that launches no kernel but ``adam`` (elementwise:
+   FlopCounterMode counts none of its work, on the card or in its plain
+   version), the predicted FLOPs equal FlopCounterMode's over one extra
+   untimed step on the card within DRY_FLOP_RTOL.  Where a step launches
+   ssd_scan or flash_attention the card's count misses the kernels'
+   work: the gap is printed.
 6. The sharded train step (run_sharded_train; launch/sharded.py, run
    after phase 4's train runs and before phase 5's new ones): one NCCL
    rank in this process (a HashStore, world size 1), a (1, 1) ("data",
@@ -225,7 +233,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 KERNEL_SOURCES = ("fed_agg", "compress", "flash_attention",  # csrc/<name>.cu
-                  "ssd_scan")
+                  "ssd_scan", "adam")
 MAIN_P = 6_603_710                   # femnist_cnn parameters
 # every FL model's params at Table I's width (launch/train.build_dataset):
 # the char-LSTM's and the speech CNN's merges run fed_agg at ragged widths
@@ -423,8 +431,9 @@ DRY_PEAK_BUDGET = 75e9
 # (0.990-1.000 measured on an H100, PERF.md); a wrong reckoning of the
 # optimizer's bytes (16 against 28 a param) is 1.75x
 DRY_PEAK_RATIO = (0.9, 1.1)
-# fake against the card's FlopCounterMode in a run that launches no kernel:
-# the same aten ops on the same shapes
+# fake against the card's FlopCounterMode in a run that launches no kernel
+# but adam (whose elementwise work neither side counts): the same
+# matmul-class aten ops on the same shapes
 DRY_FLOP_RTOL = 1e-6
 
 
@@ -625,6 +634,144 @@ def check_tensor_core_sass(build) -> None:
 # ------------------------------------------------------------ phase 2
 def _randn(shape, gen, dtype=torch.float32):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def adam_launches_a_step(params) -> int:
+    """``kernels.adam`` launches in one Adam step on ``params``: one a
+    table of up to MAX_LEAVES leaves of one dtype (grads in the params')."""
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.kernels.adam import MAX_LEAVES
+
+    by_dtype = {}
+    for t in tree_leaves(params):
+        by_dtype[t.dtype] = by_dtype.get(t.dtype, 0) + 1
+    return sum(-(-n // MAX_LEAVES) for n in by_dtype.values())
+
+
+ADAM_HYPER = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)   # TaskConfig's Adam
+
+
+def _adam_leaves(shapes, gen, dtype=torch.float32):
+    """params, grads, m, v (v ≥ 0) and the anchor (one row of each
+    stacked leaf) at ``shapes`` on the card."""
+    p = [_randn(s, gen, dtype) for s in shapes]
+    g = [_randn(s, gen, dtype) * 0.01 for s in shapes]
+    m = [_randn(s, gen) * 1e-3 for s in shapes]
+    v = [_randn(s, gen).square() * 1e-5 for s in shapes]
+    a = [t[0].clone() if t.dim() > 1 else t.clone() for t in p]
+    return p, g, m, v, a
+
+
+def time_adam(shapes, gen, part: str, label: str) -> dict:
+    """kernels.adam against its plain version at ``shapes`` (fp32, count 3,
+    no FedProx term, no weight decay): bit for bit, then each one's device
+    time beside the bytes bound (read p, g, m, v; write p, m, v), the
+    update-only kernel with PyTorch's apply after it (the path of an
+    optimizer whose update a caller wrapped), PyTorch's own multi-tensor
+    AdamW (``torch._fused_adamw_``, in place on copies, no FedProx term,
+    not bit-equal: it divides by sqrt(bc2) after the root) with its
+    largest param gap to the kernel after one call, and the launches a
+    call."""
+    import numpy as np
+
+    from repro_torch.kernels.adam import adam, adam_plain
+
+    p, g, m, v, _ = _adam_leaves(shapes, gen)
+    n = sum(t.numel() for t in p)
+    kw = dict(ADAM_HYPER, weight_decay=0.0,
+              bc1=float(np.float32(1) - np.float32(0.9) ** np.float32(3)),
+              bc2=float(np.float32(1) - np.float32(0.999) ** np.float32(3)))
+    before = adam.launches
+    got = adam(p, g, m, v, **kw)
+    launches = adam.launches - before
+    want = adam_plain(p, g, m, v, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("params", "m", "v"), got, want):
+        for i, (a, b) in enumerate(zip(x, y)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"adam {label}: {name} of leaf {i} {tuple(a.shape)} not "
+                    f"bit-equal to the plain passes (max |err| "
+                    f"{max_abs_err(a, b):.3g})")
+    del got, want
+    bound, bound_by = bound_ms(7 * 4 * n, 15.0 * n, part)
+
+    def split():
+        upd, _, _ = adam(p, g, m, v, apply=False, **kw)
+        return [a + b for a, b in zip(p, upd)]
+
+    lib = [[t.clone() for t in ts] for ts in (p, m, v)]
+    counts = [torch.full((), 3.0, device="cuda") for _ in p]
+
+    def library():
+        torch._fused_adamw_(
+            *lib[:1], g, *lib[1:], [], counts, lr=kw["lr"],
+            beta1=kw["b1"], beta2=kw["b2"], weight_decay=0.0, eps=kw["eps"],
+            amsgrad=False, maximize=False)
+
+    library()
+    library_gap = max(max_abs_err(a, b) for a, b in
+                      zip(lib[0], adam(p, g, m, v, **kw)[0]))
+
+    out = {"shape": label, "elements": n, "leaves": len(p),
+           "ms": time_ms(lambda: adam(p, g, m, v, **kw), runs=10),
+           "call_ms": time_ms(lambda: adam(p, g, m, v, **kw), runs=10,
+                              hold=False),
+           "bound_ms": bound, "bound_by": bound_by,
+           "plain_ms": time_ms(lambda: adam_plain(p, g, m, v, **kw),
+                               runs=5),
+           "update_then_apply_ms": time_ms(split, runs=10),
+           "library_ms": time_ms(library, runs=10),
+           "library_param_max_abs_gap": library_gap,
+           "launches_a_call": launches}
+    out["roofline_pct"] = 100.0 * bound / out["ms"]
+    return out
+
+
+def check_adam(gen, part: str) -> dict:
+    """kernels.adam bit for bit against its plain version on the card at
+    ragged and bf16 leaves with the FedProx term and weight decay, then
+    timed at the FEMNIST CNN's leaves stacked to the executor's bucket of
+    64 and at mamba2-130m's leaves (what make_train_step steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.kernels.adam import adam, adam_plain
+    from repro_torch.models.small import make_cnn
+    from repro_torch.models.transformer import init_params
+
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = [(64, 62), (64, 1001), (7,), (3, 5, 5), (64, 2048)]
+        p, g, m, v, a = _adam_leaves(shapes, gen, dtype)
+        for apply in (True, False):
+            kw = dict(ADAM_HYPER, weight_decay=0.01, bc1=0.1, bc2=0.001,
+                      anchor=a, mu=0.01, apply=apply)
+            got, want = adam(p, g, m, v, **kw), adam_plain(p, g, m, v, **kw)
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):
+                for i, (s, t) in enumerate(zip(x, y)):
+                    if not torch.equal(s, t):
+                        raise AssertionError(
+                            f"adam {dtype} apply={apply}: leaf {i} "
+                            f"{tuple(s.shape)} max |err| "
+                            f"{max_abs_err(s, t):.3g}")
+    cnn = make_cnn(28, 1, 62, 2048, "femnist_cnn").init(0, "cuda")
+    cnn_shapes = [(64, *t.shape) for t in tree_leaves(cnn)]
+    del cnn
+    lm = init_params(get_config("mamba2-130m"),
+                     torch.Generator(device="cuda").manual_seed(0))
+    lm_shapes = [tuple(t.shape) for t in tree_leaves(lm)]
+    del lm
+    torch.cuda.empty_cache()
+    cnn_k64 = time_adam(cnn_shapes, gen, part, "femnist_cnn K=64")
+    lm_step = time_adam(lm_shapes, gen, part, "mamba2-130m")
+    row = {"name": "adam", "route": "cuda",
+           "source": "src/repro_torch/csrc/adam.cu",
+           "replaces": "none (the JAX package's Adam is XLA-fused jnp)",
+           **cnn_k64, **{f"lm_{k}": x for k, x in lm_step.items()}}
+    torch.cuda.empty_cache()
+    log(json.dumps({"kernel_check": row}))
+    return row
+
 
 
 def check_fed_agg(gen, part: str) -> dict:
@@ -1424,7 +1571,9 @@ def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
     # host time inside local training: the eager loop's local_train ends
     # by reading its loss back; the executor's batch_work_fn is followed
     # by a synchronize, so each span covers its device work
-    spent = {"s": 0.0, "steps": 0, "client_steps": 0}
+    # optimizer_steps: Optimizer.step calls, one a local step of a client
+    # on the eager loop and of each mesh slot's slice on the executor
+    spent = {"s": 0.0, "steps": 0, "client_steps": 0, "optimizer_steps": 0}
 
     def steps_of(ds):
         return task.config.epochs * -(-len(ds) // task.config.batch_size)
@@ -1437,6 +1586,7 @@ def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
         spent["s"] += time.perf_counter() - t
         spent["steps"] += steps_of(ds)
         spent["client_steps"] += steps_of(ds)
+        spent["optimizer_steps"] += steps_of(ds)
         return out
 
     batch_work_fn = ClientPool.batch_work_fn
@@ -1446,8 +1596,12 @@ def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
         out = batch_work_fn(pool, cids, global_params, round_number)
         torch.cuda.synchronize()
         spent["s"] += time.perf_counter() - t
+        mesh = pool.executor.mesh
         for group in pool.executor._group(pool, cids).values():
-            spent["steps"] += steps_of(pool.clients[group[0]].dataset)
+            steps = steps_of(pool.clients[group[0]].dataset)
+            spent["steps"] += steps
+            spent["optimizer_steps"] += steps * (1 if mesh is None
+                                                 else mesh.size)
         spent["client_steps"] += sum(steps_of(pool.clients[c].dataset)
                                      for c in cids)
         return out
@@ -1476,6 +1630,12 @@ def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
         ClientPool.batch_work_fn = batch_work_fn
         experiment.make_host_mesh, experiment.make_clients_mesh = \
             mesh_makers
+    adam_a_step = (adam_launches_a_step(init)
+                   if task.config.optimizer in ("adam", "adamw") else 0)
+    if launches["adam"] != spent["optimizer_steps"] * adam_a_step:
+        raise RuntimeError(f"{label}: {launches['adam']} adam launches for "
+                           f"{spent['optimizer_steps']} optimizer steps of "
+                           f"{adam_a_step} launches")
     if ratio is not None:
         _check_ratios(label, trace_path, ratio)
     if assignment is not None:
@@ -1504,6 +1664,8 @@ def run_main_path(label: str, ratio=None, meshes=None, cudnn: bool = True,
            "merged_updates": [r.aggregated_updates for r in res.rounds],
            "local_train_s": spent["s"], "local_steps": spent["steps"],
            "client_steps": spent["client_steps"],
+           "optimizer_steps": spent["optimizer_steps"],
+           "adam_launches_a_step": adam_a_step,
            "ms_per_local_step": 1e3 * spent["s"] / max(1, spent["steps"]),
            "local_share_of_wall": spent["s"] / wall, "peak_gb": peak_gb,
            "compression_ratio": ratio, "launches": launches}
@@ -1810,14 +1972,16 @@ def profile_vectorized_round(dataset: str = "femnist",
 
 def check_merge_launches(run: dict, model_kernels=()) -> None:
     """An identity-merge run launches fed_agg once a merge, and no other
-    kernel but the model's own (``model_kernels``)."""
+    kernel but the model's own (``model_kernels``) and the clients' local
+    Adam (``adam``, whose count run_main_path holds to the run's optimizer
+    steps)."""
     merges = sum(1 for m in run["merged_updates"] if m)
     launches = run["launches"]
     if merges < 1 or launches["fed_agg"] != merges:
         raise RuntimeError(f"{run['run']}: {launches['fed_agg']} fed_agg "
                            f"launches for {merges} merges")
     others = {k: n for k, n in launches.items()
-              if k != "fed_agg" and k not in model_kernels and n}
+              if k not in ("fed_agg", "adam", *model_kernels) and n}
     if others:
         raise RuntimeError(f"{run['run']}: other kernels launched: {others}")
 
@@ -3428,11 +3592,11 @@ def run_train(arch: str, batch: int, S: int, steps: int, part: str,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = torch.stack(losses).tolist()
     in_super, rem = _mamba_layers(cfg)
-    want_ssd = steps * (2 * in_super + rem)     # remat reruns the forward
-    if any(launches[k] != (want_ssd if k == "ssd_scan" else 0)
-           for k in launches):
+    want = {"ssd_scan": steps * (2 * in_super + rem),   # remat reruns it
+            "adam": steps * adam_launches_a_step(state["params"])}
+    if any(launches[k] != want.get(k, 0) for k in launches):
         raise RuntimeError(f"{arch} train: launches {launches}, want "
-                           f"{want_ssd} ssd_scan and no other")
+                           f"{want} and no other")
     with FlopCounterMode(display=False) as counter:
         state, _ = train_step(state, batches[0])
     card_flops = float(counter.get_total_flops())
@@ -3776,6 +3940,8 @@ def run_sharded_train(smi: str) -> dict:
                "batch": batch, "seq": S, "steps": steps,
                "params": sum(t.numel() for t in tree_leaves(final["params"])),
                "want_ssd_launches": want_launches,
+               "adam_launches_a_step": adam_launches_a_step(
+                   final["params"]),
                "last_step_from_carried_state": {
                    "plain_loss": float(want_loss), **gap},
                "params_after_all_steps": gap_all, **runs}
@@ -3803,12 +3969,12 @@ def run_sharded_train(smi: str) -> dict:
         if not g["worst_over_bound"] <= 1.0:
             failures.append(f"params {g['worst_over_bound']:.4g} of the "
                             f"bound after {label}")
+    want_adam = steps * out["adam_launches_a_step"]
     for name, run in runs.items():
         launches = run["launches"]
-        if any(launches[k] != (want_launches if k == "ssd_scan" else 0)
-               for k in launches):
-            failures.append(f"{name}: launches {launches}, want "
-                            f"{want_launches} ssd_scan")
+        want = {"ssd_scan": want_launches, "adam": want_adam}
+        if any(launches[k] != want.get(k, 0) for k in launches):
+            failures.append(f"{name}: launches {launches}, want {want}")
     if sharded["region_calls"] != want_launches:
         failures.append(f"{sharded['region_calls']} ssd_scan_sharded calls "
                         f"for {want_launches} launches")
@@ -3991,7 +4157,8 @@ def run_dry_run(predicted: dict, serve: dict, training: dict,
         got = runs[label]
         step_s = got["ms_per_step"] / 1e3
         peak = got["peak_gb"] * 1e9
-        kernel_free = not any(got["launches"].values())
+        kernel_free = not any(n for k, n in got["launches"].items()
+                              if k != "adam")
         row = {"run": label, "launches": got["launches"],
                "argument_bytes": pred["argument_bytes"],
                "held_bytes": got["held_bytes"],
@@ -4038,7 +4205,9 @@ def main() -> int:
             check_fed_agg_sharded(gen, part),
             check_fed_agg_apply_sharded(gen, part),
             *check_int8(gen, part), check_topk_mask(gen, part),
-            check_flash_attention(gen, part), check_ssd_scan(gen, part)]
+            check_flash_attention(gen, part), check_ssd_scan(gen, part),
+            check_adam(gen, part)]
+    row_of = {row["name"]: row for row in rows}
     log(f"phase 2 done at {time.perf_counter() - T0:.1f} s")
 
     # the default path on the card is the vectorized executor; one run
@@ -4094,7 +4263,8 @@ def main() -> int:
     check_checkpoint_resume()
     new_runs = [r for m in small_models.values()
                 for r in (m["executor"], m["eager"])]
-    rows[0]["merge_sizes"] = check_merge_sizes(gen, part, new_runs)
+    row_of["fed_agg"]["merge_sizes"] = check_merge_sizes(gen, part,
+                                                         new_runs)
     profiles = {"shakespeare": profile_vectorized_round("shakespeare"),
                 "speech": profile_vectorized_round("speech", epochs=1)}
     log(json.dumps({"small_models": {
@@ -4123,7 +4293,7 @@ def main() -> int:
     predicted = predict_runs()
     log(json.dumps({"dry_run_predictions": predicted}))
     log(f"dry run predictions done at {time.perf_counter() - T0:.1f} s")
-    serve = run_serve(rows[-2])
+    serve = run_serve(row_of["flash_attention"])
     log(f"{SERVE_ARCH} serve done at {time.perf_counter() - T0:.1f} s")
     ssm_serves = []
     for spec in SSM_SERVES:
@@ -4141,7 +4311,8 @@ def main() -> int:
             "fed_agg_sharded": sharded,
             "fed_agg_apply_sharded": fedadam_sharded,
             "int8_encode": int8, "int8_decode": int8, "topk_mask": topk,
-            "flash_attention": serve, "ssd_scan": ssm_serves[0]}
+            "flash_attention": serve, "ssd_scan": ssm_serves[0],
+            "adam": fedlesscan}
     for row in rows:
         run = runs[row["name"]]
         row["launches"] = run["launches"][row["name"]]
@@ -4151,7 +4322,7 @@ def main() -> int:
     # ssd_scan in training: mamba2-130m's launches (the forward, rerun by
     # remat), its kernel forward and plain backward at the train shape
     mamba_train = training["train"][0]
-    rows[-1].update({
+    row_of["ssd_scan"].update({
         "train_launches": mamba_train["launches"]["ssd_scan"],
         "train_shape": mamba_train["arch"] + " (8, 4096, 24, 64, 128) bf16",
         "train_ms": training["ssd_autograd"]["mamba2-130m"][
@@ -4160,35 +4331,45 @@ def main() -> int:
             "plain_backward_ms"]})
     # the federated SSM run: the scan under the executor's vmap rule, the
     # merge at mamba2-130m's P
-    rows[-1].update({
+    row_of["ssd_scan"].update({
         "executor_launches": federated_ssm["executor_launches"]["ssd_scan"],
         "executor_steps": federated_ssm["executor_steps"],
         "executor_shape": federated_ssm["scan_shapes"],
         **{f"executor_{k}": federated_ssm["scan_at_folded_shape"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
     fed_ssm_merge = federated_ssm["fed_agg"]
-    rows[0].update({
+    row_of["fed_agg"].update({
         "ssm_launches": federated_ssm["executor_launches"]["fed_agg"],
         **{f"ssm_{k}": fed_ssm_merge[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "shape")}})
     # the sharded train step (phase 6): its launches, all from the scan's
     # local_map region on one NCCL rank
-    rows[-1]["sharded_train_launches"] = sharded_train["sharded"][
-        "launches"]["ssd_scan"]
-    rows[-2]["musicgen_launches"] = training["musicgen_serve"]["launches"][
-        "flash_attention"]
+    row_of["ssd_scan"]["sharded_train_launches"] = sharded_train[
+        "sharded"]["launches"]["ssd_scan"]
+    row_of["flash_attention"]["musicgen_launches"] = training[
+        "musicgen_serve"]["launches"]["flash_attention"]
     for arch, _, _ in ZOO_SERVES:
-        rows[-2][f"{arch}_launches"] = zoo[arch]["launches"][
-            "flash_attention"]
+        row_of["flash_attention"][f"{arch}_launches"] = zoo[arch][
+            "launches"]["flash_attention"]
+    # adam in training and in the sharded train step: make_train_step's
+    # launches, held to the steps' count by run_train / run_sharded_train
+    row_of["adam"].update({
+        "train_launches": mamba_train["launches"]["adam"],
+        "sharded_train_launches": sharded_train["sharded"]["launches"][
+            "adam"]})
     if int8["launches"]["int8_encode"] != int8["launches"]["int8_decode"]:
         raise RuntimeError(f"int8 launches differ: {int8['launches']}")
     if int8["launches"]["fed_agg"] < 1 or topk["launches"]["fed_agg"] < 1:
         raise RuntimeError("a compressed run never launched fed_agg")
+    extra_keys = {
+        "flash_attention": ("vlm_ms", "vlm_plain_ms", "vlm_bound_ms",
+                            "vlm_library_ms"),
+        "adam": ("library_ms", "lm_ms", "lm_plain_ms", "lm_bound_ms",
+                 "lm_library_ms")}
     for row in rows:
-        for key in ("ms", "plain_ms", "bound_ms") + (
-                ("vlm_ms", "vlm_plain_ms", "vlm_bound_ms", "vlm_library_ms")
-                if row["name"] == "flash_attention" else ()):
+        for key in ("ms", "plain_ms", "bound_ms") + extra_keys.get(
+                row["name"], ()):
             if not (isinstance(row[key], float) and math.isfinite(row[key])):
                 raise RuntimeError(f"{row['name']}: bad {key} {row[key]}")
     log(json.dumps({"kernels": rows}))

@@ -13,9 +13,10 @@ module trains a whole group of same-shape clients together:
   * the group's batches stack into (K, T, B, ...) tensors staged on the
     device once, and each of the T steps is one
     ``torch.func.vmap(torch.func.grad_and_value(masked_loss))`` call over
-    the K-stacked params, followed by the proximal term and the
-    optimizer, which are elementwise and run on the stacked trees
-    directly (the Python loop over T is the counterpart of ``lax.scan``);
+    the K-stacked params, followed by the optimizer's step (the proximal
+    term, the update and the apply), which is elementwise and runs on the
+    stacked trees directly: for Adam one ``kernels.adam`` launch on the
+    card (the Python loop over T is the counterpart of ``lax.scan``);
   * K is padded to a power-of-two bucket by repeating the last client
     (padded rows are never read), as the JAX package does to reuse its
     compiled executables; ``compile_count`` counts the distinct dispatch
@@ -47,7 +48,6 @@ from torch.func import grad_and_value, vmap
 from .. import tracing
 from ..core.device_batch import DeviceUpdateBatch
 from ..core.flatten import flatten_params, tree_leaves, tree_map
-from ..optim import apply_updates, proximal_grad
 from ..sharding.rules import shard_slices
 from .tasks import _cross_entropy
 
@@ -169,10 +169,8 @@ class VectorizedExecutor:
                 grads, loss = step(st["params"], xs[:, t], ys[:, t],
                                    ms[:, t])
                 with tracing.span("fl.optimizer"):
-                    grads = proximal_grad(grads, st["params"], st["g"], mu)
-                    updates, st["opt"] = optimizer.update(grads, st["opt"],
-                                                          st["params"])
-                    st["params"] = apply_updates(st["params"], updates)
+                    st["params"], st["opt"] = optimizer.step(
+                        grads, st["opt"], st["params"], st["g"], mu)
                 st["losses"].append(loss)
         return [(st["params"], torch.stack(st["losses"], dim=1).mean(dim=1))
                 for st in states]

@@ -18,7 +18,7 @@ from ..core.flatten import tree_map
 from ..data.synthetic import ArrayDataset
 from ..device import DeviceLike, resolve_device
 from ..models.small import ModelDef
-from ..optim import apply_updates, make_optimizer, proximal_grad
+from ..optim import make_optimizer
 
 Pytree = Any
 
@@ -61,10 +61,9 @@ class ClassificationTask:
         with torch.no_grad():
             grads = tree_map(lambda p: p.grad, params)
             params = tree_map(lambda p: p.detach(), params)
-            grads = proximal_grad(grads, params, global_params, mu)
-            updates, opt_state = self.optimizer.update(grads, opt_state,
-                                                       params)
-            return apply_updates(params, updates), opt_state, loss.detach()
+            params, opt_state = self.optimizer.step(
+                grads, opt_state, params, global_params, mu)
+            return params, opt_state, loss.detach()
 
     def local_train(self, global_params: Pytree, ds: ArrayDataset,
                     mu: float = 0.0, seed: int = 0) -> Tuple[Pytree, float]:

@@ -13,7 +13,11 @@
                    with an online softmax (models/attention.py)
   ssd_scan       — Mamba2 SSD chunked scan with the state carried inside
                    the block, and the final state (models/ssm.py)
+  adam           — the local Adam / AdamW step (FedProx term, moments,
+                   bias-corrected step, weight decay, apply) over a tree's
+                   leaves in one pass (optim/optimizers.py)
 """
+from .adam import adam, adam_plain
 from .compress import (COMPRESS_SCHEMES, int8_decode, int8_decode_plain, int8_encode,
                        int8_encode_plain, topk_decode, topk_encode, topk_mask,
                        topk_mask_plain, topk_select)
@@ -24,7 +28,8 @@ from .flash_attention import flash_attention, flash_attention_plain
 from .ssd_scan import ssd_scan, ssd_scan_plain
 
 KERNELS = (fed_agg, fed_agg_apply, fed_agg_sharded, fed_agg_apply_sharded,
-           int8_encode, int8_decode, topk_mask, flash_attention, ssd_scan)
+           int8_encode, int8_decode, topk_mask, flash_attention, ssd_scan,
+           adam)
 
 
 def reset_launches() -> None:
@@ -33,7 +38,8 @@ def reset_launches() -> None:
         wrapper.launches = 0
 
 
-__all__ = ["APPLY_OPTS", "COMPRESS_SCHEMES", "KERNELS", "fed_agg",
+__all__ = ["APPLY_OPTS", "COMPRESS_SCHEMES", "KERNELS", "adam", "adam_plain",
+           "fed_agg",
            "fed_agg_apply", "fed_agg_apply_plain", "fed_agg_apply_sharded",
            "fed_agg_plain", "fed_agg_sharded",
            "flash_attention", "flash_attention_plain",

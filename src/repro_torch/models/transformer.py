@@ -52,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import tracing
 from ..core.flatten import tree_leaves, tree_map
-from ..optim import apply_updates, make_optimizer
+from ..optim import make_optimizer
 from .attention import (attn_init, cross_attention, decode_cross_attention,
                         decode_self_attention, init_cross_cache,
                         init_kv_cache, kv_to_cache, self_attention)
@@ -407,9 +407,8 @@ def make_train_step(cfg: ArchConfig):
                    ) -> Tuple[Pytree, torch.Tensor]:
         loss, grads = grads_of(cfg, state["params"], batch)
         with tracing.span("train.optimizer", step=state["opt"].get("count")):
-            updates, opt = optimizer.update(grads, state["opt"],
-                                            state["params"])
-            params = apply_updates(state["params"], updates)
+            params, opt = optimizer.step(grads, state["opt"],
+                                         state["params"])
         return {"params": params, "opt": opt}, loss
 
     return train_step, init_state

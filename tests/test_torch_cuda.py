@@ -630,3 +630,179 @@ def test_executor_step_of_mamba_on_card_matches_plain_scan(monkeypatch):
     for (path, t), (_, w) in zip(tree_paths(grads), tree_paths(want_grads)):
         rel = float((t - w).norm() / w.norm().clamp(min=1e-30))
         assert rel <= 1e-4, (path, rel)
+
+
+# ------------------------------------------------------------------ adam
+ADAM = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8)
+
+
+def _bias_corrections(count):
+    return {f"bc{i}": float(np.float32(1) - np.float32(b) ** np.float32(
+        count)) for i, b in ((1, ADAM["b1"]), (2, ADAM["b2"]))}
+
+
+def _adam_inputs(shapes, dtype, seed):
+    """params, grads, moments (v ≥ 0) and the anchor (a stacked leaf's
+    first row) on the card, from numpy."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape, scale, dt):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to("cuda", dt)
+
+    p = [draw(s, 1.0, dtype) for s in shapes]
+    g = [draw(s, 0.01, dtype) for s in shapes]
+    m = [draw(s, 1e-3, torch.float32) for s in shapes]
+    v = [draw(s, 3e-3, torch.float32).square() for s in shapes]
+    a = [t[0].clone() if t.dim() > 1 else t.clone() for t in p]
+    return p, g, m, v, a
+
+
+def _femnist_shapes(k=64):
+    from repro_torch.core.flatten import tree_leaves
+    from repro_torch.models.small import make_cnn
+    return [(k, *t.shape) for t in
+            tree_leaves(make_cnn(28, 1, 62, 2048, "femnist_cnn").init(0))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["femnist_k64", "ragged_prox_wd",
+                                  "bf16_prox_wd", "many_leaves"])
+def test_adam_matches_plain_on_card(case):
+    """kernels.adam bit for bit against its plain version (PyTorch's
+    unfused passes) on the card, three steps from one state, the step and
+    the update alone; one launch a table of MAX_LEAVES leaves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.adam import MAX_LEAVES, adam, adam_plain
+
+    dtype, extra = torch.float32, {}
+    if case == "femnist_k64":          # the 62- and 2048x62-element leaves
+        shapes = _femnist_shapes()
+        assert (64, 62) in shapes and (64, 2048, 62) in shapes
+    elif case == "ragged_prox_wd":     # lengths not a multiple of 4
+        shapes = [(5, 1001), (3,), (7, 3, 3), (2, 4097)]
+        extra = dict(mu=0.01, weight_decay=0.01)
+    elif case == "bf16_prox_wd":
+        shapes = [(8, 62), (8, 1001), (8, 64, 62)]
+        dtype, extra = torch.bfloat16, dict(mu=0.01, weight_decay=0.01)
+    else:                              # more leaves than one table holds
+        shapes = [(4, 5 + i) for i in range(2 * MAX_LEAVES + 9)]
+    p, g, m, v, a = _adam_inputs(shapes, dtype, seed=len(case))
+    kw = dict(ADAM, weight_decay=extra.get("weight_decay", 0.0),
+              anchor=a, mu=extra.get("mu", 0.0))
+    for count in (1, 2, 3):
+        for apply in (False, True):
+            before = adam.launches
+            got = adam(p, g, m, v, apply=apply, **kw,
+                       **_bias_corrections(count))
+            assert adam.launches - before == -(-len(shapes) // MAX_LEAVES)
+            want = adam_plain(p, g, m, v, apply=apply, **kw,
+                              **_bias_corrections(count))
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):
+                for s, t in zip(x, y):
+                    assert s.dtype == t.dtype and s.shape == t.shape
+                    assert torch.equal(s, t), (case, count, apply,
+                                               tuple(s.shape))
+        p, m, v = got
+        assert all(t.dtype == dtype for t in p)
+
+
+@pytest.mark.cuda
+def test_adam_refuses_what_its_kernel_does_not_take_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.adam import adam
+
+    h = torch.zeros(4, 8, device="cuda", dtype=torch.float16)
+    f = torch.zeros(4, 8, device="cuda")
+    with pytest.raises(TypeError, match="adam's kernel takes"):
+        adam([h], [h], [f], [f], weight_decay=0.0, bc1=0.1, bc2=0.001,
+             **ADAM)
+
+
+@pytest.mark.cuda
+def test_host_scalar_division_is_a_reciprocal_product_on_card():
+    """The kernel takes m / bc1 as m · fp32(1 / bc1), the reciprocal taken
+    in double, as PyTorch's CUDA true division by a CPU scalar computes it
+    (for 0.001 the fp32 reciprocal of fp32(0.001) is 999.99994, and the
+    quotients differ); fp32 scalars in products, bf16 · scalar rounded
+    once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=1 << 20).astype(np.float32)).cuda()
+    scalars = [0.1, 0.001, 0.3] + [bc for count in (1, 2, 3, 7, 1000)
+                                   for bc in _bias_corrections(count).values()]
+    for bc in scalars:
+        assert torch.equal(x / bc, x * float(np.float32(1.0 / bc)))
+    assert not torch.equal(x / 0.001,
+                           x * float(np.float32(1) / np.float32(0.001)))
+    assert torch.equal(0.9 * x, x * float(np.float32(0.9)))
+    xb = x.to(torch.bfloat16)
+    assert torch.equal(0.01 * xb,
+                       (xb.float() * float(np.float32(0.01))).bfloat16())
+
+
+@pytest.mark.cuda
+def test_executor_launches_adam_once_a_step_on_card():
+    """VectorizedExecutor._train_group on the card (deterministic cuDNN,
+    TF32 off, FedProx on): one adam launch a local step, and the rows the
+    plain passes give when applied by hand in the optimizer's place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.core.flatten import tree_leaves, tree_map
+    from repro_torch.data import make_image_classification
+    from repro_torch.data.synthetic import ArrayDataset
+    from repro_torch.fl.executor import VectorizedExecutor
+    from repro_torch.fl.tasks import ClassificationTask, TaskConfig
+    from repro_torch.kernels.adam import adam, adam_plain
+    from repro_torch.models.small import make_cnn
+    from repro_torch.optim import Optimizer
+
+    full = make_image_classification(100, 14, 4, seed=0)
+    parts = [ArrayDataset(full.x[i * 20:(i + 1) * 20],
+                          full.y[i * 20:(i + 1) * 20]) for i in range(5)]
+    task = ClassificationTask(
+        make_cnn(14, 1, 4, 8, "tiny"),
+        TaskConfig(epochs=2, batch_size=8, optimizer="adam",
+                   learning_rate=1e-3), device="cuda")
+    params = task.init_params(0)
+    cids, seeds = [f"c{i}" for i in range(5)], list(range(5))
+    opt = task.optimizer
+
+    def by_hand(grads, state, params):
+        count = state["count"] + 1
+        out = tree_map(lambda p, g, m, v: adam_plain(
+            [p], [g], [m], [v], weight_decay=0.0, apply=False, **ADAM,
+            **_bias_corrections(count)), params, grads, state["m"],
+            state["v"])
+        pick = [tree_map(lambda r: r[i][0], out) for i in range(3)]
+        return pick[0], {"count": count, "m": pick[1], "v": pick[2]}
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        rows = {}
+        for name, o in (("kernel", opt), ("by_hand", Optimizer(opt.init,
+                                                               by_hand))):
+            task.optimizer = o
+            before = adam.launches
+            stacked, losses = VectorizedExecutor(task)._train_group(
+                cids, parts, params, 0.01, seeds)
+            torch.cuda.synchronize()
+            rows[name] = (stacked, losses, adam.launches - before)
+    finally:
+        task.optimizer = opt
+        (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    steps = 2 * -(-20 // 8)
+    assert rows["kernel"][2] == steps and rows["by_hand"][2] == 0
+    assert torch.equal(rows["kernel"][1], rows["by_hand"][1])
+    for a, b in zip(tree_leaves(rows["kernel"][0]),
+                    tree_leaves(rows["by_hand"][0])):
+        assert a.device.type == "cuda" and torch.equal(a, b)
