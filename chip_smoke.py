@@ -28,7 +28,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed at Zamba2's shape and at llama-3.2-vision-11b's (d 128, GQA
    32 / 8), where SDPA computes the same function, and
    ssd_scan at one prompt, with its bf16 passes' device times
-   (torch.profiler) and workspace bytes.
+   (torch.profiler) and workspace bytes.  ssd_scan also on grouped B/C
+   (b, l, g, n) at Nemotron-H's widths (SSD_GROUPED: one launch, equal
+   bit for bit to the call on per-head copies, timed against it at the
+   hybrid train cell's shape), and models.moe.moe_layer at its widths
+   (MOE_SHAPE: every routed pair of the held experts computed, y against
+   an expert-by-expert fp32 sum; a "moe_layer" JSON line).
 3. The main paths on the full-width FEMNIST CNN (3 rounds, 8 clients a
    round, 30 % stragglers) through run_experiment on "cuda", whose
    default there is the vectorized executor.  First the executor against
@@ -317,6 +322,20 @@ SSD_SHAPES = ((1, 1, 2, 16, 8), (2, 100, 3, 40, 16), (1, 129, 2, 64, 128),
               (64, 32, 24, 64, 128), (2, 200, 24, 64, 128))
 SSD_FP32_TOL = 1e-4          # rtol and atol
 SSD_BF16_ATOL = 1e-3         # plus one bf16 ulp of max |y|
+# grouped B/C (b, l, g, n), head i reading group i // (h / g), at
+# Nemotron-H's widths (b, l, h, p, n, g): a cut length in fp32 and bf16,
+# and the hybrid train cell's shape in bf16, the main path's call
+SSD_GROUPED = (((1, 2048, 64, 64, 128, 8), (torch.float32, torch.bfloat16)),
+               ((4, 8192, 64, 64, 128, 8), (torch.bfloat16,)))
+# moe_layer at Nemotron-H's widths (D, F, shared F, router experts, top-k,
+# held) on T tokens in bf16: against the same routing's pairs summed expert
+# by expert in fp32 from the same bf16 weights and inputs, within
+# MOE_REL_TOL of max |y|: the layer rounds the hidden products, relu², the
+# expert outputs and a bf16 sum of up to seven terms, a few bf16 ulps
+# (2**-8) of max |y|, while a pair left out or sent to another expert moves
+# y by a whole expert's output
+MOE_SHAPE = dict(D=2688, F=1856, Fs=3712, E=128, k=6, held=16, T=8192)
+MOE_REL_TOL = 3e-2
 # in the serve runs, each scan call on the model's own activations: y as
 # above, the fp32 state within SSD_FP32_TOL relative or SSD_FP32_TOL of
 # max |state| (its sums over thousands of positions cancel)
@@ -1342,6 +1361,139 @@ def _ssd_inputs(shape, gen, dtype, broadcast: bool):
     return x, a, B, C
 
 
+def _check_ssd_grouped(gen, part: str) -> dict:
+    """ssd_scan on grouped B/C (b, l, g, n) at SSD_GROUPED's shapes: one
+    launch a call, y and the state bit-equal to the call on B and C
+    copied to every head, and within the head-broadcast checks'
+    tolerances of ssd_scan_plain; at the train cell's shape timed against
+    the call on copies.  Returns the ssd_scan row's ``nemotron_``
+    numbers."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    out, err = {}, 0.0
+    for (b, l, h, p, n, g), dtypes in SSD_GROUPED:
+        for dtype in dtypes:
+            x = (_randn((b, l, h, p), gen) * 0.5).to(dtype)
+            a = -_randn((b, l, h), gen).abs() * 0.3
+            B, C = ((_randn((b, l, g, n), gen) * 0.5).to(dtype)
+                    for _ in range(2))
+            label = (f"ssd_scan {str(dtype)[6:]} grouped (b, l, h, p, n, g) "
+                     f"= {(b, l, h, p, n, g)}")
+            before = ssd_scan.launches
+            y, state = ssd_scan(x, a, B, C, return_state=True)
+            torch.cuda.synchronize()
+            if ssd_scan.launches != before + 1:
+                raise RuntimeError(f"{label}: {ssd_scan.launches - before} "
+                                   f"launches, not 1")
+            copies = [t.repeat_interleave(h // g, 2) for t in (B, C)]
+            y2, state2 = ssd_scan(x, a, *copies, return_state=True)
+            if not (torch.equal(y, y2) and torch.equal(state, state2)):
+                raise RuntimeError(f"{label}: not bit-equal to the call on "
+                                   f"per-head copies")
+            want, want_state = ssd_scan_plain(x, a, B, C, return_state=True)
+            torch.testing.assert_close(y, want, **_ssd_y_tol(want),
+                                       msg=lambda m: f"{label}, y: {m}")
+            torch.testing.assert_close(
+                state, want_state, rtol=SSD_FP32_TOL, atol=SSD_FP32_TOL,
+                msg=lambda m: f"{label}, state: {m}")
+            case_err = max(max_abs_err(y, want),
+                           max_abs_err(state, want_state))
+            err = max(err, case_err)
+            log(f"{label}: max |err| {case_err:.3g}; one launch, equal to "
+                f"per-head copies")
+            del y, state, y2, state2, want, want_state
+            if (b, l, h, p, n, g) == SSD_GROUPED[-1][0]:
+                flops, n_bytes = _ssd_work(x, a, B)
+                bound, bound_by = bound_ms(n_bytes, flops, part, BF16_FLOPS)
+                out.update({
+                    "nemotron_ms": time_ms(
+                        lambda: ssd_scan(x, a, B, C, return_state=True),
+                        runs=10),
+                    "nemotron_copies_ms": time_ms(
+                        lambda: ssd_scan(x, a, *copies, return_state=True),
+                        runs=10),
+                    "nemotron_bound_ms": bound,
+                    "nemotron_bound_by": bound_by,
+                    "nemotron_shape": f"(b, l, h, p, n, g) = "
+                                      f"{(b, l, h, p, n, g)} bf16"})
+            del x, a, B, C, copies
+    out["nemotron_max_abs_err"] = err
+    return out
+
+
+def check_moe_layer(gen) -> dict:
+    """models.moe.moe_layer on the card at MOE_SHAPE (bf16, held experts
+    from 0): every pair its router sends to a held expert is computed
+    (moe.routed_pairs equals the pairs counted from ``route``), and y is
+    the shared expert plus those pairs' weighted relu² experts, summed
+    expert by expert in fp32 from the same bf16 inputs and weights, within
+    MOE_REL_TOL of max |y|; its backward runs and gives finite
+    gradients.  Logs a "moe_layer" JSON line."""
+    from repro_torch import tracing
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_layer, route
+
+    m = MOE_SHAPE
+    cfg = get_config("nemotron-3-nano-30b-a3b").replace(
+        d_model=m["D"], d_ff=m["F"], shared_expert_ff=m["Fs"],
+        n_experts=m["E"], top_k=m["k"], held_experts=m["held"],
+        dtype="bfloat16")
+    bf = torch.bfloat16
+    p = {"router": _randn((m["D"], m["E"]), gen) * m["D"] ** -0.5,
+         "router_bias": torch.zeros(m["E"], device=gen.device),
+         "up": (_randn((m["held"], m["D"], m["F"]), gen)
+                * m["D"] ** -0.5).to(bf),
+         "down": (_randn((m["held"], m["F"], m["D"]), gen)
+                  * m["F"] ** -0.5).to(bf),
+         "shared": {"up": (_randn((m["D"], m["Fs"]), gen)
+                           * m["D"] ** -0.5).to(bf),
+                    "down": (_randn((m["Fs"], m["D"]), gen)
+                             * m["Fs"] ** -0.5).to(bf)}}
+    x = _randn((1, m["T"], m["D"]), gen).to(bf)
+    tracing.enable()
+    try:
+        with torch.no_grad():
+            y = moe_layer(p, x, cfg)
+        torch.cuda.synchronize()
+    finally:
+        tracing.enable(False)
+    _, counts = tracing.drain()
+    flat = x.reshape(-1, m["D"])
+    with torch.no_grad():
+        weights, experts = route(p, flat, cfg)
+        relu2 = lambda t: torch.relu(t) ** 2  # noqa: E731
+        want = relu2(flat.float() @ p["shared"]["up"].float()) \
+            @ p["shared"]["down"].float()
+        pairs = 0
+        for e in range(m["held"]):
+            tok, slot = (experts == e).nonzero(as_tuple=True)
+            pairs += tok.numel()
+            if tok.numel():
+                h = relu2(flat[tok].float() @ p["up"][e].float())
+                want.index_add_(0, tok, (h @ p["down"][e].float())
+                                * weights[tok, slot, None])
+    if counts.get("moe.routed_pairs") != pairs:
+        raise RuntimeError(f"moe_layer: {counts.get('moe.routed_pairs')} "
+                           f"routed pairs computed, the router sent {pairs}")
+    gap = max_abs_err(y.reshape(-1, m["D"]).float(), want) / float(
+        want.abs().max())
+    if not gap < MOE_REL_TOL:
+        raise RuntimeError(f"moe_layer: {gap:.3g} of max |y| from the "
+                           f"expert-by-expert sum (tolerance {MOE_REL_TOL})")
+    leaves = [p["up"], p["down"], p["shared"]["up"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    grads = torch.autograd.grad(moe_layer(p, x, cfg).float().square().mean(),
+                                leaves)
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise RuntimeError("moe_layer: non-finite gradients")
+    out = {"shape": m, "routed_pairs": pairs,
+           "max_expert_rows": counts.get("moe.max_expert_rows"),
+           "gap_over_max_y": gap, "tolerance": MOE_REL_TOL}
+    log(json.dumps({"moe_layer": out}))
+    return out
+
+
 def _ssd_y_tol(want: torch.Tensor) -> dict:
     """The bound on the kernel's y: SSD_FP32_TOL in fp32; in bf16 one bf16
     ulp of max |y| plus SSD_BF16_ATOL."""
@@ -1355,11 +1507,11 @@ def _ssd_work(x, a, B, q: int = 128):
     """(operations, bytes) of one scan: per token and head 2qn + 2qp for
     the masked products (counted in full, at the reference's chunk q) and
     4pn for the state's two products; x and y, a_dt, the final state and
-    B and C (each read once in place) moved once."""
+    B and C (each group read once in place) moved once."""
     b, l, h, p = x.shape
     n = B.shape[-1]
     flops = float(b * l * h) * (2 * q * n + 2 * q * p + 4 * p * n)
-    bc_heads = 1 if B.stride(2) == 0 else h
+    bc_heads = 1 if B.stride(2) == 0 else B.shape[2]
     n_bytes = (2 * x.numel() * x.element_size() + 4 * a.numel()
                + 4 * b * h * p * n + 2 * b * l * bc_heads * n
                * B.element_size())
@@ -1431,9 +1583,11 @@ def check_ssd_scan(gen, part: str) -> dict:
                     f"{max_abs_err(state, want_state):.3g}")
                 del args, y, state, want, want_state
 
+    grouped = _check_ssd_grouped(gen, part)
+
     row = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/csrc/ssd_scan.cu",
-           "replaces": "src/repro/kernels/ssd_scan.py:84"}
+           "replaces": "src/repro/kernels/ssd_scan.py:84", **grouped}
     # the main path's calls: bf16, B and C broadcast over heads, the state
     for cfg_name, prefix in (("mamba2-130m", ""), ("zamba2-1.2b", "zamba_"),
                              ("mamba2-130m b1", "b1_")):
@@ -4208,6 +4362,7 @@ def main() -> int:
             check_flash_attention(gen, part), check_ssd_scan(gen, part),
             check_adam(gen, part)]
     row_of = {row["name"]: row for row in rows}
+    check_moe_layer(gen)
     log(f"phase 2 done at {time.perf_counter() - T0:.1f} s")
 
     # the default path on the card is the vectorized executor; one run

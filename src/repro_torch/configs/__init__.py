@@ -1,5 +1,5 @@
-from .registry import all_configs, get_config, list_architectures
+from .registry import PORT_ONLY, all_configs, get_config, list_architectures
 from .shapes import INPUT_SHAPES, InputShape
 
-__all__ = ["all_configs", "get_config", "list_architectures",
+__all__ = ["PORT_ONLY", "all_configs", "get_config", "list_architectures",
            "INPUT_SHAPES", "InputShape"]

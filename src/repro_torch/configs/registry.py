@@ -24,6 +24,11 @@ def _load_file(path: Path) -> ArchConfig:
     return mod.CONFIG
 
 
+# the configs the port holds and the JAX package does not (parity tests
+# leave them out)
+PORT_ONLY = ("nemotron-3-nano-30b-a3b",)
+
+
 def list_architectures() -> List[str]:
     return sorted(p.stem for p in _DIR.glob("*.py") if p.name not in _SKIP)
 

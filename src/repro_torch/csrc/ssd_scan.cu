@@ -82,7 +82,10 @@
 //
 // Both: B and C are read through batch, time and head strides with a unit
 // stride in n, so the head-broadcast views that models/ssm.py passes (head
-// stride 0) are read in place and no (b, l, h, n) copy is made.  The
+// stride 0) are read in place and no (b, l, h, n) copy is made.  Grouped B
+// and C (b, l, g, n), g dividing h, are read in place too: head h reads
+// group h / (h_total / g), as Mamba2's n_groups > 1 (Nemotron-H: 64 heads,
+// 8 groups), through the same pointer arithmetic at heads_per_group > 1.  The
 // segment sums are the reference's cumsum differences, all exps have
 // arguments <= 0, no fast math (expf; the bf16 score decay aside, above).  Positions at or past l load x = 0,
 // a = 0 and B = C = 0, so a ragged tail leaves the state exact (decay
@@ -118,6 +121,11 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) { return x
 
 struct Strides {
   long long b, s, h;  // elements: batch, time, head; the last dim has stride 1
+  int r = 1;          // heads that read one row of the head dim (B and C's groups)
+  // the row of batch bi and head hi: head hi reads row hi / r
+  __device__ __forceinline__ long long at(int bi, int hi) const {
+    return bi * b + (long long)(hi / r) * h;
+  }
 };
 
 // Shared-memory layout for a padded state dim NP (32, 64 or 128).
@@ -156,8 +164,8 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ a, const T* __rest
   const int tx = tid & 15, ty = tid >> 4;
   const T* xh = x + b * sx.b + h * sx.h + p0;
   const float* ah = a + b * sa.b + h * sa.h;
-  const T* bh = Bm + b * sb.b + h * sb.h;
-  const T* ch = Cm + b * sc.b + h * sc.h;
+  const T* bh = Bm + sb.at(b, h);
+  const T* ch = Cm + sc.at(b, h);
   T* yh = y + ((long long)b * L * H + h) * P + p0;
   const long long y_ss = (long long)H * P;
 
@@ -506,7 +514,7 @@ chunk_state_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
 
   // every global load is issued before the first wait: the B tile's
   // copies, this thread's x units (into registers) and a
-  const bf16* bh = Bm + b * sb.b + h * sb.h + t0 * sb.s;
+  const bf16* bh = Bm + sb.at(b, h) + t0 * sb.s;
   load_tile<kChunk, NP>(Bs, bh, sb.s, rows, N, rows_aligned16(bh, sb.s, 2));
   constexpr int kXUnits = kChunk * kPT / 8 / kThreads;  // 8 values of a row each
   const bf16* xh = x + b * sx.b + h * sx.h + t0 * sx.s + p0;
@@ -639,8 +647,8 @@ chunk_output_kernel(const bf16* __restrict__ x, const float* __restrict__ a,
   const int rows = min(kChunk, L - t0), pcols = min(kPT, P - p0);
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
 
-  const bf16* ch = Cm + b * sc.b + h * sc.h + t0 * sc.s;
-  const bf16* bh = Bm + b * sb.b + h * sb.h + t0 * sb.s;
+  const bf16* ch = Cm + sc.at(b, h) + t0 * sc.s;
+  const bf16* bh = Bm + sb.at(b, h) + t0 * sb.s;
   const bf16* xh = x + b * sx.b + h * sx.h + t0 * sx.s + p0;
   load_tile<kChunk, NP>(Cs, ch, sc.s, rows, N, rows_aligned16(ch, sc.s, 2));
   load_tile<kChunk, NP>(Bs, bh, sb.s, rows, N, rows_aligned16(bh, sb.s, 2));
@@ -814,8 +822,9 @@ const char* ssd_scan_error_string(int code) {
 int ssd_scan_chunk() { return tc::kChunk; }
 
 // y (b, l, h, p) contiguous = the SSD scan of x (b, l, h, p), a (b, l, h)
-// fp32 and B, C (b, l, h, n), each given by element strides (batch, time,
-// head) with a unit stride in its last dim; x, B, C and y share dtype (0
+// fp32 and B, C (b, l, h / heads_per_group, n), each given by element
+// strides (batch, time, head or group) with a unit stride in its last dim
+// (head i reads B and C's row i / heads_per_group); x, B, C and y share dtype (0
 // fp32, 1 bf16).  When state is not null it receives the fp32 (b, h, p, n)
 // state after position l - 1, contiguous.  For bf16, work holds
 // b * h * ceil(l / ssd_scan_chunk()) * (p * n + 1) fp32 values: the chunk
@@ -824,14 +833,15 @@ int ssd_scan_launch(const void* x, const void* a, const void* Bm, const void* Cm
                     void* state, void* work, int Bsz, int L, int H, int P, int N, long long x_sb,
                     long long x_ss, long long x_sh, long long a_sb, long long a_ss,
                     long long a_sh, long long b_sb, long long b_ss, long long b_sh,
-                    long long c_sb, long long c_ss, long long c_sh, int dtype, int device,
-                    void* stream) {
-  if (Bsz < 1 || L < 1 || H < 1 || P < 1 || N < 1 || N > kMaxState || H > 65535 || Bsz > 65535)
+                    long long c_sb, long long c_ss, long long c_sh, int heads_per_group,
+                    int dtype, int device, void* stream) {
+  if (Bsz < 1 || L < 1 || H < 1 || P < 1 || N < 1 || N > kMaxState || H > 65535 || Bsz > 65535 ||
+      heads_per_group < 1 || H % heads_per_group)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const Strides sx{x_sb, x_ss, x_sh}, sa{a_sb, a_ss, a_sh}, sb{b_sb, b_ss, b_sh},
-      sc{c_sb, c_ss, c_sh};
+  const Strides sx{x_sb, x_ss, x_sh}, sa{a_sb, a_ss, a_sh},
+      sb{b_sb, b_ss, b_sh, heads_per_group}, sc{c_sb, c_ss, c_sh, heads_per_group};
   const float* af = static_cast<const float*>(a);
   float* sf = static_cast<float*>(state);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,7 +1,8 @@
 """Mamba2 SSD chunked scan (state-space duality) in fp32.
 
 With x (b, l, h, p) already scaled by dt, a_dt (b, l, h) = A·dt (≤ 0) and
-B, C (b, l, h, n), the scan is the recurrence
+B, C (b, l, g, n), g dividing h (head i reads group i // (h / g), Mamba2's
+``n_groups``; g = h gives each head its own), the scan is the recurrence
     state_t = exp(a_t)·state_{t-1} + x_t ⊗ B_t ;  y_t = state_t · C_t
 computed chunk by chunk, as the Pallas TPU kernel of the JAX package's
 kernels/ssd_scan.py (``_ssd_kernel``) computes it: within a chunk, with
@@ -31,13 +32,16 @@ version compute the same function in fp32 and agree to rounding, not bit
 for bit.
 The kernels read x, B and C with any batch, time and head strides as long
 as the last dimension is contiguous, so the head-broadcast views of B and
-C that models/ssm.py passes (head stride 0) are read in place.
+C that models/ssm.py passes for one group (head stride 0) are read in
+place, and so are grouped (b, l, g, n) tensors: no per-head copy either
+way.  The plain version computes C·Bᵀ once a group.
 
 The kernels have no backward, as the Pallas kernel has none.  Under
 autograd ``ssd_scan`` runs as ``_SSDScan``: the kernels compute the
 forward, and the backward recomputes the plain version in fp32 from the
 saved inputs and returns its vector-Jacobian product (what ``jax.grad``
-of the JAX package's ``ssd_chunked`` computes).  So the kernel runs the
+of the JAX package's ``ssd_chunked`` computes); grouped B and C get
+(b, l, g, n) gradients, summed over each group's heads.  So the kernel runs the
 forward of training, and the plain version its backward.  Under
 ``torch.func.vmap`` (the vectorized executor) ``_SSDScan``'s vmap rule
 folds the vmapped dim into the batch, so a call still launches once.
@@ -72,7 +76,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ssd_scan_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
-                        _int, _int, _int, *([_ll] * 12), _int, _int, _vp],
+                        _int, _int, _int, *([_ll] * 12), _int, _int, _int,
+                        _vp],
     "ssd_scan_chunk": [],
 }
 
@@ -99,16 +104,17 @@ def _check(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
            C: torch.Tensor, chunk: int) -> None:
     if x.dim() != 4 or a_dt.dim() != 3 or B.dim() != 4 or C.dim() != 4:
         raise ValueError(f"x must be (b, l, h, p), a_dt (b, l, h) and B, C "
-                         f"(b, l, h, n), got {tuple(x.shape)}, "
+                         f"(b, l, g, n), got {tuple(x.shape)}, "
                          f"{tuple(a_dt.shape)}, {tuple(B.shape)}, "
                          f"{tuple(C.shape)}")
     b, l, h, p = x.shape
     if tuple(a_dt.shape) != (b, l, h):
         raise ValueError(f"a_dt must be ({b}, {l}, {h}), got "
                          f"{tuple(a_dt.shape)}")
-    if tuple(B.shape[:3]) != (b, l, h) or tuple(C.shape) != tuple(B.shape):
-        raise ValueError(f"B and C must be ({b}, {l}, {h}, n), got "
-                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    if tuple(B.shape[:2]) != (b, l) or tuple(C.shape) != tuple(B.shape) \
+            or B.shape[2] < 1 or h % B.shape[2]:
+        raise ValueError(f"B and C must be ({b}, {l}, g, n) with g dividing "
+                         f"{h}, got {tuple(B.shape)}, {tuple(C.shape)}")
     if min(b, l, h, p, B.shape[3]) < 1:
         raise ValueError(f"empty ssd_scan input {tuple(x.shape)}, "
                          f"{tuple(B.shape)}")
@@ -135,11 +141,13 @@ def ssd_scan_plain(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
                    init_state: Optional[torch.Tensor] = None
                    ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Plain version of ``ssd_scan``: the chunked algorithm in fp32
-    throughout, chunk = min(chunk, l), l padded up to a multiple of it.
+    throughout, chunk = min(chunk, l), l padded up to a multiple of it;
+    the heads split as (g, r), r = h / g heads a group of B and C.
     ``init_state`` (b, h, p, n) is the state entering the first chunk
     (zero when None); ``models.ssm.ssd_chunked`` passes it."""
     b, l, h, p = x.shape
-    n = B.shape[-1]
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
     q = min(chunk, l)
     c = -(-l // q)
     pad = c * q - l
@@ -148,21 +156,23 @@ def ssd_scan_plain(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
         xf, Bf, Cf = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
                       for t in (xf, Bf, Cf))
         af = torch.nn.functional.pad(af, (0, 0, 0, pad))
-    xc = xf.reshape(b, c, q, h, p)
-    Bc = Bf.reshape(b, c, q, h, n)
-    Cc = Cf.reshape(b, c, q, h, n)
+    xc = xf.reshape(b, c, q, g, r, p)
+    Bc = Bf.reshape(b, c, q, g, n)
+    Cc = Cf.reshape(b, c, q, g, n)
     a_cum = torch.cumsum(af.reshape(b, c, q, h).permute(0, 3, 1, 2), dim=-1)
 
-    # intra-chunk term: (C·Bᵀ ⊙ L)·x
+    # intra-chunk term: (C·Bᵀ ⊙ L)·x, C·Bᵀ once a group
     seg = a_cum[..., :, None] - a_cum[..., None, :]          # (b,h,c,q,q)
     mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    L = torch.exp(torch.where(mask, seg, NEG))
-    scores = torch.einsum("bcihn,bcjhn->bhcij", Cc, Bc) * L
-    y = torch.einsum("bhcij,bcjhp->bcihp", scores, xc)
+    L = torch.exp(torch.where(mask, seg, NEG)).view(b, g, r, c, q, q)
+    scores = torch.einsum("bcign,bcjgn->bgcij", Cc, Bc)[:, :, None] * L
+    y = torch.einsum("bgrcij,bcjgrp->bcigrp", scores, xc)
 
     # each chunk's own contribution to the state it hands on
     decay_out = torch.exp(a_cum[..., -1:] - a_cum)           # (b,h,c,q)
-    chunk_states = torch.einsum("bcqhn,bhcq,bcqhp->bchpn", Bc, decay_out, xc)
+    chunk_states = torch.einsum(
+        "bcqgn,bgrcq,bcqgrp->bcgrpn", Bc, decay_out.view(b, g, r, c, q),
+        xc).reshape(b, c, h, p, n)
     chunk_decay = torch.exp(a_cum[..., -1])                  # (b,h,c)
     state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
              if init_state is None else init_state.float())
@@ -174,8 +184,9 @@ def ssd_scan_plain(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
 
     # the state entering each chunk, decayed to each position:
     # exp(a_cum)·C·stateᵀ
-    y = y + torch.einsum("bcqhn,bchpn,bhcq->bcqhp", Cc, entering,
-                         torch.exp(a_cum))
+    y = y + torch.einsum("bcqgn,bcgrpn,bgrcq->bcqgrp", Cc,
+                         entering.view(b, c, g, r, p, n),
+                         torch.exp(a_cum).view(b, g, r, c, q))
     y = y.reshape(b, c * q, h, p)[:, :l].to(x.dtype)
     return (y, state) if return_state else y
 
@@ -206,8 +217,8 @@ def _scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
         x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
         state.data_ptr() if return_state else None,
         work.data_ptr() if work is not None else None, b, l, h, p, n,
-        *strides, _DTYPE_CODES[x.dtype], x.device.index or 0,
-        build.stream(x))
+        *strides, h // B.shape[2], _DTYPE_CODES[x.dtype],
+        x.device.index or 0, build.stream(x))
     build.check_status(lib, "ssd_scan", code, "ssd_scan")
     ssd_scan.launches += 1
     return (y, state) if return_state else y
@@ -302,8 +313,9 @@ class _SSDScan(torch.autograd.Function):
 def ssd_scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, chunk: int = 128, return_state: bool = False
              ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The SSD scan of x (b, l, h, p), a_dt (b, l, h), B and C (b, l, h, n),
-    x, B and C float32 or bfloat16 on one device → a fresh (b, l, h, p)
+    """The SSD scan of x (b, l, h, p), a_dt (b, l, h), B and C (b, l, g, n)
+    (g dividing h; head i reads group i // (h / g)), x, B and C float32 or
+    bfloat16 on one device → a fresh (b, l, h, p)
     tensor in x's dtype, and with ``return_state`` the fp32 (b, h, p, n)
     final state.  On the card n must be at most 128 and the last dimension
     of x, B and C contiguous.  Differentiable: with grad mode on and an
@@ -326,6 +338,10 @@ def ssd_scan_sharded(x: DTensor, a_dt: DTensor, B: DTensor, C: DTensor,
     ``return_state`` the state (b, h, p, n) beside it."""
     rank, size = model_shard(x.device_mesh)
     h, p = x.shape[2], x.shape[3]
+    if B.shape[2] != h:
+        raise ValueError(f"ssd_scan_sharded takes B and C per head (or "
+                         f"head-broadcast), got {B.shape[2]} groups for "
+                         f"{h} heads")
     # the model axis splits the heads, else the head dim, else nothing
     split = 2 if h % size == 0 else 3 if p % size == 0 else None
     x_on = Shard(split) if split else Replicate()

@@ -222,7 +222,9 @@ def model_flops(cfg, shape, n_params_active: int) -> float:
 
 
 def active_param_count(cfg) -> int:
-    """Params touched per token (MoE: top_k of E experts)."""
+    """Params touched per token (MoE: top_k of E experts; a 'moe' block's
+    non-gated experts: top_k of E on average over the held ones, each
+    held expert touched by a top_k / E share of the tokens)."""
     from ..models.config import param_count
     total = param_count(cfg)
     if not cfg.n_experts:
@@ -230,10 +232,16 @@ def active_param_count(cfg) -> int:
     expert_params = 3 * cfg.d_model * cfg.d_ff      # per expert, per block
     layer_positions = [i for i, k in enumerate(cfg.pattern)
                        if k != "shared_attn"]
+    kinds = [cfg.pattern[layer_positions[li % len(layer_positions)]]
+             for li in range(cfg.n_layers)]
     n_moe_blocks = sum(
-        1 for li in range(cfg.n_layers)
-        if cfg.use_moe(layer_positions[li % len(layer_positions)]))
+        1 for li, kind in enumerate(kinds)
+        if kind in ("attn", "local", "cross")
+        and cfg.use_moe(layer_positions[li % len(layer_positions)]))
     inactive = (cfg.n_experts - cfg.top_k) * expert_params * n_moe_blocks
+    held = cfg.n_held
+    inactive += (kinds.count("moe") * 2 * cfg.d_model * cfg.d_ff
+                 * (held * (cfg.n_experts - cfg.top_k) // cfg.n_experts))
     return total - inactive
 
 

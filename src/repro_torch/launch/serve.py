@@ -75,6 +75,10 @@ def generate(cfg: ArchConfig, params, prompt: torch.Tensor, new: int,
     at position S, and a codebook model picks from its first codebook's
     logits and feeds the pick to every codebook.  Times are host seconds
     up to a synchronise of the prompt's device."""
+    if cfg.single_mixer:
+        raise ValueError(f"{cfg.name}: serving lacks the grouped Mamba2 "
+                         f"decode step and the KV cache of the single-mixer "
+                         f"(NoPE attention, MoE) blocks")
     B, S = prompt.shape[0], prompt.shape[-1]
     device = prompt.device
     batch = {"tokens": prompt}

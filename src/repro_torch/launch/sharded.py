@@ -79,6 +79,11 @@ def make_sharded_train_step(cfg: ArchConfig, device_mesh,
     ``init_state(gen)`` → the state as DTensors; ``train_step(state,
     batch)`` → ``(state, loss)``, the batch plain tensors (the whole
     batch, on every rank) or DTensors, the loss a plain 0-d tensor."""
+    if cfg.single_mixer:
+        raise ValueError(f"{cfg.name}: the sharded train step has no "
+                         f"regions for grouped Mamba2 B/C and the "
+                         f"single-mixer (NoPE attention, dropless MoE) "
+                         f"blocks")
     mesh = abstract_mesh(device_mesh)
     names = device_mesh.mesh_dim_names
     step, init = make_train_step(cfg)

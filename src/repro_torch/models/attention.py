@@ -6,6 +6,10 @@ Layouts (head dims kept explicit, as in the reference):
   wq: (D, H, hd)   wk/wv: (D, K, hd)   wo: (H, hd, D)
   KV cache: (B, K, S_cache, hd); window layers use a ring buffer.
 
+With ``sdpa`` (the port's ``attn_only`` blocks, Nemotron-H's layers,
+trained at 8192 positions) full-sequence causal self-attention runs in
+torch's ``scaled_dot_product_attention``, whose backward the port's
+``flash_attention`` kernel lacks.
 With ``cfg.use_pallas_attention`` full-sequence self-attention runs in the
 hand-written ``flash_attention`` kernel (the reference's field name: in
 the port it routes to the CUDA kernel, and to its plain version on the
@@ -28,6 +32,7 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels.flash_attention import flash_attention
@@ -160,9 +165,27 @@ def _causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          cfg: ArchConfig, window: Optional[int]) -> torch.Tensor:
+    """Causal GQA attention of q (B, S, H, hd) over k, v (B, S, K, hd) in
+    torch's ``scaled_dot_product_attention`` (scale 1/√hd), each KV head
+    repeated for its H / K query heads: its flash and memory-efficient
+    backends keep memory linear in S under autograd, where the plain path
+    saves every chunk's probabilities.  No window, no softcap."""
+    if window or cfg.attn_logit_softcap:
+        raise ValueError(f"{cfg.name}: SDPA attention takes no window and "
+                         f"no softcap")
+    G = q.shape[2] // k.shape[2]
+    o = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.repeat_interleave(G, dim=2).transpose(1, 2),
+        v.repeat_interleave(G, dim=2).transpose(1, 2), is_causal=True)
+    return o.transpose(1, 2)
+
+
 def self_attention(p: Pytree, x: torch.Tensor, positions: torch.Tensor,
                    cfg: ArchConfig, window: Optional[int] = None,
-                   q_chunk: int = 1024, return_kv: bool = False):
+                   q_chunk: int = 1024, return_kv: bool = False,
+                   sdpa: bool = False):
     """Causal (optionally windowed) self-attention over a full sequence.
 
     With ``cfg.use_pallas_attention`` it runs in the flash_attention
@@ -173,6 +196,8 @@ def self_attention(p: Pytree, x: torch.Tensor, positions: torch.Tensor,
         return apply_rope(t, positions, cfg.rope_fraction, cfg.rope_theta)
 
     def core(q, k, v):
+        if sdpa:
+            return _sdpa(q, k, v, cfg, window)
         if cfg.use_pallas_attention:
             # (B,S,H,hd) views as (B,H,S,hd): the kernel reads them in place
             o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),

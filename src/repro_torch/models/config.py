@@ -8,6 +8,20 @@ The per-layer structure is a repeating `pattern` of block kinds:
   'shared_attn' full-attention block whose params are SHARED across all
                 occurrences (Zamba2-style shared transformer block)
   'cross'       self-attention + cross-attention (VLM) block
+  'attn_only'   a pre-norm residual block whose one mixer is causal GQA
+                self-attention in SDPA, no MLP (Nemotron-H's '*' layers)
+  'moe'         a pre-norm residual block whose one mixer is a dropless
+                mixture of non-gated experts beside an optional shared
+                expert (Nemotron-H's 'E' layers; models/moe.py moe_layer)
+
+Nemotron-H gives its pattern per layer: ``pattern`` is then the whole
+stack (``n_layers == len(pattern)``, one superblock), and remat
+checkpoints each block of a stack of the single-mixer kinds
+(``single_mixer``) on its own; every other stack remats a superblock at
+a time.  Every field past the JAX package's (the SSM's heads and
+groups, the 'moe' blocks' routed scale, held experts and shared expert,
+the chunked CE) defaults to what the JAX package computes, so the configs
+both packages hold are the same.
 
 `n_layers` counts pattern-block instances; the stack is
 ``n_layers // len(pattern)`` scanned superblocks plus an unrolled
@@ -63,6 +77,15 @@ class ArchConfig:
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_conv: int = 4
+    ssm_n_heads: int = 0              # 0 → expand·d_model / head_dim heads
+    ssm_groups: int = 1               # B/C groups (Mamba2 n_groups); the
+                                      # gated RMSNorm runs per group
+
+    # --- 'moe' blocks (dropless, sigmoid-routed; models/moe.py moe_layer) ---
+    routed_scale: float = 1.0         # the routed weights' scale
+    held_experts: int = 0             # experts held here, from the first
+                                      # (0 → all n_experts)
+    shared_expert_ff: int = 0         # width of the shared expert (0: none)
 
     # --- VLM -------------------------------------------------------------------
     n_patches: int = 0                # vision-stub patch count
@@ -71,13 +94,16 @@ class ArchConfig:
     n_codebooks: int = 0              # EnCodec codebooks (musicgen: 4)
 
     # --- misc ---------------------------------------------------------------
-    act: str = "silu"                 # silu | gelu
+    act: str = "silu"                 # silu | gelu | relu2 (relu(x)²)
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"           # activation/compute dtype
     param_dtype: str = "float32"
     remat: bool = True                # checkpoint superblocks in train_step
     efficient_ce: bool = False        # logsumexp CE (no fp32 logp tensor)
+    ce_chunk: int = 0                 # > 0: the head and logsumexp CE in
+                                      # chunks of this many tokens, each
+                                      # recomputed in the backward
     attn_fp32_softmax: bool = True    # False → bf16 softmax tensors (the
                                       # Pallas flash kernel's on-chip
                                       # accumulator makes this moot on TPU)
@@ -102,11 +128,26 @@ class ArchConfig:
 
     @property
     def d_inner(self) -> int:
+        if self.ssm_n_heads:
+            return self.ssm_n_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
 
     @property
     def ssm_heads(self) -> int:
-        return self.d_inner // self.ssm_head_dim
+        return self.ssm_n_heads or self.d_inner // self.ssm_head_dim
+
+    @property
+    def single_mixer(self) -> bool:
+        """Whether the stack holds the port's single-mixer kinds or grouped
+        B/C (Nemotron-H), which serving and the sharded train step do not
+        take."""
+        return bool({"attn_only", "moe"} & set(self.pattern)) or \
+            self.ssm_groups > 1
+
+    @property
+    def n_held(self) -> int:
+        """Experts a 'moe' block holds here."""
+        return self.held_experts or self.n_experts
 
     @property
     def period(self) -> int:
@@ -146,6 +187,7 @@ class ArchConfig:
         ≤4 experts — runnable on CPU in seconds."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
+        n_experts = min(self.n_experts, 4) if self.n_experts else 0
         n_kv = min(self.n_kv_heads, n_heads) or n_heads
         while n_heads % n_kv:
             n_kv -= 1
@@ -156,7 +198,7 @@ class ArchConfig:
             n_layers=n_layers, d_model=d_model, n_heads=n_heads,
             n_kv_heads=n_kv, d_ff=min(self.d_ff, 512),
             vocab=min(self.vocab, 512), head_dim=None,
-            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            n_experts=n_experts,
             top_k=min(self.top_k, 2) if self.top_k else 0,
             # drop-free dispatch so batched vs single-token routing agree
             # exactly in the smoke tests (full configs keep 1.25)
@@ -167,7 +209,24 @@ class ArchConfig:
             window=min(self.window, 64),
             long_context_window=(min(self.long_context_window, 64)
                                  if self.long_context_window else 0),
-            moe_group_size=64, remat=False, dtype="float32")
+            moe_group_size=64, remat=False, dtype="float32",
+            **self._reduced_extras(n_experts))
+
+    def _reduced_extras(self, n_experts: int) -> dict:
+        """``reduced``'s cuts of the fields the JAX package lacks, only
+        where a config sets them (so the shared configs reduce alike)."""
+        out = {}
+        if self.ssm_n_heads:
+            out["ssm_n_heads"] = 4
+        if self.ssm_groups > 1:
+            out["ssm_groups"] = 2
+        if self.held_experts:
+            out["held_experts"] = min(self.held_experts, n_experts)
+        if self.shared_expert_ff:
+            out["shared_expert_ff"] = min(self.shared_expert_ff, 512)
+        if self.ce_chunk:
+            out["ce_chunk"] = min(self.ce_chunk, 64)
+        return out
 
     def long_context(self) -> "ArchConfig":
         """Variant for long_500k: every full-attention block becomes a
@@ -192,14 +251,20 @@ def param_count(cfg: ArchConfig) -> int:
         moe += mlp
     mamba = 0
     if cfg.ssm_state:
-        din, N, Hs = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        din, N, Hs = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, \
+            cfg.ssm_heads
         conv_dim = din + 2 * N
         in_proj = D * (2 * din + 2 * N + Hs)
         mamba = in_proj + conv_dim * cfg.ssm_conv + 3 * Hs + din + din * D
     norms = 2 * D
+    # a 'moe' block: router and its correction bias, the held experts'
+    # up and down, the shared expert
+    sparse = (D * cfg.n_experts + cfg.n_experts + cfg.n_held * 2 * D * F
+              + 2 * D * cfg.shared_expert_ff)
     kinds = {"attn": attn + mlp + norms, "local": attn + mlp + norms,
              "cross": 2 * attn + mlp + 3 * D,
              "mamba": mamba + D,
+             "attn_only": attn + D, "moe": sparse + D,
              "shared_attn": 0}
     total = 0
     layer_positions = [i for i, k in enumerate(cfg.pattern)

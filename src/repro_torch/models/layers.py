@@ -13,6 +13,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils.checkpoint import checkpoint
 
 from ..sharding.spmd import (act_in, batch_placements, model_dim,
                              model_shard, region, split_on, weight_in)
@@ -63,9 +64,14 @@ def gated_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def activation(a: torch.Tensor, act: str) -> torch.Tensor:
-    """``silu``, or ``gelu`` as the tanh approximation, as ``jax.nn.gelu``
-    computes it by default."""
-    return F.silu(a) if act == "silu" else F.gelu(a, approximate="tanh")
+    """``silu``; ``relu2``, relu(a)² (Nemotron-H's experts); or ``gelu``
+    as the tanh approximation, as ``jax.nn.gelu`` computes it by
+    default."""
+    if act == "silu":
+        return F.silu(a)
+    if act == "relu2":
+        return torch.square(F.relu(a))
+    return F.gelu(a, approximate="tanh")
 
 
 def gated_mlp(p: Pytree, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
@@ -161,6 +167,35 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _nll_sum(h: torch.Tensor, head: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+    """Summed token CE of h (T, D) through the untied head (D, V), in the
+    logsumexp form, fp32."""
+    lf = (h @ head.to(h.dtype)).float()
+    return (torch.logsumexp(lf, dim=-1)
+            - torch.take_along_dim(lf, labels[:, None].long(), dim=-1)[:, 0]
+            ).sum()
+
+
+def chunked_cross_entropy(h: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor, chunk: int,
+                          remat: bool) -> torch.Tensor:
+    """Mean token CE of hidden states h (..., D) through the untied head
+    (D, V) against labels (...): the logsumexp form, ``chunk`` tokens at a
+    time, so at most one chunk's (chunk, V) logits live at once; with
+    ``remat`` each chunk keeps only its inputs and recomputes its logits
+    in the backward pass.  The head is cast inside each chunk, so its
+    gradient comes back in its own dtype and adds up there."""
+    flat, targets = h.reshape(-1, h.shape[-1]), labels.reshape(-1)
+    total = None
+    for s in range(0, flat.shape[0], chunk):
+        args = (flat[s:s + chunk], head, targets[s:s + chunk])
+        part = (checkpoint(_nll_sum, *args, use_reentrant=False) if remat
+                else _nll_sum(*args))
+        total = part if total is None else total + part
+    return total / flat.shape[0]
 
 
 class _LogSumExp(torch.autograd.Function):

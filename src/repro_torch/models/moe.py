@@ -9,6 +9,23 @@ its C capacity slots whether or not a token fills them, so a decode step
 
 Covers: llama4-maverick (128e top-1 + shared dense expert) and arctic
 (128e top-2 + parallel dense-residual FFN) via ``cfg.parallel_dense_mlp``.
+
+``moe_layer`` is the port's own, with no JAX counterpart: the mixer of a
+'moe' block (Nemotron-H's 'E' layers).  Router logits x·W in fp32,
+sigmoid scores s, the k experts chosen by s + ``router_bias`` (the
+correction bias steers the choice only), their weights s normalised to
+sum 1 and scaled by ``cfg.routed_scale``.  Dispatch is dropless: the
+token-expert pairs that fall on the held experts are sorted by expert
+and the held experts' non-gated MLPs down(act(up(x))) run as two grouped
+matrix products (``torch._grouped_mm``), each expert on its own
+contiguous rows (one host sync a layer, for the pairs' count); the
+weighted rows are added back to their tokens.  A shared expert, if any,
+runs on every token.  The layer holds experts ``first`` .. ``first + held
+− 1`` of ``n_experts`` and routes over all of them: its output is those
+experts' part of the routed sum (plus the shared expert), as one card of
+an expert-parallel layer computes it without the exchange.  Under tracing: the span ``moe`` (the
+layer's forward), ``moe.experts`` (the held experts' products) and the
+counters ``moe.routed_pairs`` and ``moe.max_expert_rows``.
 """
 from __future__ import annotations
 
@@ -19,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from .. import tracing
 from ..sharding.spmd import (act_in, batch_placements, model_shard, region,
                              split_on, weight_in)
 from .config import ArchConfig
@@ -176,3 +194,102 @@ def router_load(p: Pytree, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
     _, topi = _top_k(logits, cfg.top_k)
     return torch.bincount(topi.reshape(-1), minlength=cfg.n_experts)
+
+
+# ============================================================ 'moe' blocks
+def moe_layer_init(gen: torch.Generator, cfg: ArchConfig,
+                   dtype=torch.float32) -> Pytree:
+    """A 'moe' block's mixer: the router (D, E) and its correction bias
+    (E,) in fp32 (the bias starts at zero and takes no gradient: it only
+    steers the choice), the held experts' ``up`` (held, D, F) and
+    ``down`` (held, F, D), and the shared expert's."""
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": he_init(gen, (D, E), D, torch.float32),
+         "router_bias": torch.zeros((E,), dtype=torch.float32,
+                                    device=gen.device),
+         "up": he_init(gen, (cfg.n_held, D, Fd), D, dtype),
+         "down": he_init(gen, (cfg.n_held, Fd, D), Fd, dtype)}
+    if cfg.shared_expert_ff:
+        Fs = cfg.shared_expert_ff
+        p["shared"] = {"up": he_init(gen, (D, Fs), D, dtype),
+                       "down": he_init(gen, (Fs, D), Fs, dtype)}
+    return p
+
+
+def route(p: Pytree, x: torch.Tensor, cfg: ArchConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(weights (T, k) fp32, experts (T, k)) of tokens x (T, D) over all
+    ``cfg.n_experts`` experts (module docstring)."""
+    scores = torch.sigmoid(x.float() @ p["router"].float())
+    _, experts = torch.topk(scores + p["router_bias"].float(), cfg.top_k,
+                            dim=-1)
+    w = scores.gather(1, experts)
+    return w / (w.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale, experts
+
+
+def _mlp(x: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
+         act: str) -> torch.Tensor:
+    """A non-gated expert: down(act(x·up))."""
+    return activation(x @ up.to(x.dtype), act) @ down.to(x.dtype)
+
+
+class _HostCopy:
+    """A small device tensor's copy to the host, started at once and waited
+    for in ``tolist``.  On a card the wait is for the copy alone (an event
+    behind it, into pinned memory), so the work queued after the copy keeps
+    the card busy while the host waits and then issues what comes next."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        self.host = t
+        if t.is_cuda:
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def tolist(self) -> list:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.tolist()
+
+
+def moe_layer(p: Pytree, x: torch.Tensor, cfg: ArchConfig,
+              first: int = 0) -> torch.Tensor:
+    """A 'moe' block's mixer, x (B, S, D) → (B, S, D): the held experts'
+    part of the routed sum, from expert ``first`` on, dropless (every pair
+    routed to a held expert is computed), plus the shared expert on every
+    token.  The pairs are sorted by held expert, those of other experts
+    last; the held experts' row counts are the one host sync, and the
+    shared expert is queued before it is waited for."""
+    B, S, D = x.shape
+    held = p["up"].shape[0]
+    with tracing.span("moe"):
+        flat = x.reshape(B * S, D)
+        weights, experts = route(p, flat, cfg)
+        local = experts.reshape(-1) - first
+        local = torch.where((local >= 0) & (local < held), local, held)
+        local, order = torch.sort(local, stable=True)
+        counts = torch.bincount(local, minlength=held + 1)
+        pending = _HostCopy(counts)
+        ends = torch.cumsum(counts[:held], 0).to(torch.int32)
+        y = (_mlp(flat, p["shared"]["up"], p["shared"]["down"], cfg.act)
+             if "shared" in p else torch.zeros_like(flat))
+        rows = pending.tolist()[:held]
+        pairs = sum(rows)
+        tracing.count("moe.routed_pairs", pairs)
+        tracing.count("moe.max_expert_rows", max(rows, default=0))
+        if not pairs:
+            return y.reshape(B, S, D)
+        order = order[:pairs]
+        token = torch.div(order, cfg.top_k, rounding_mode="floor")
+        xs = flat[token]
+        with tracing.span("moe.experts"):
+            # one grouped product a projection: held expert e takes rows
+            # ends[e - 1]:ends[e]
+            h = torch._grouped_mm(xs, p["up"].to(x.dtype), offs=ends)
+            ys = torch._grouped_mm(activation(h, cfg.act),
+                                   p["down"].to(x.dtype), offs=ends)
+        w = weights.reshape(-1)[order]
+        y = y.index_add(0, token, ys * w[:, None].to(ys.dtype))
+        return y.reshape(B, S, D)

@@ -2,7 +2,14 @@
 
 The port of the JAX package's models/ssm.py (Dao & Gu 2024,
 arXiv:2405.21060): scalar-per-head A, depthwise causal conv on (x, B, C),
-softplus dt, gated RMSNorm.  The full-sequence block runs the scan in the
+softplus dt, gated RMSNorm.  With ``cfg.ssm_groups`` = G > 1 (Nemotron-H:
+64 heads in 8 groups) B and C come in G groups of ``ssm_state`` (head h
+reads group h // (H / G)), are handed to the scan as (b, l, G, n) tensors
+that it reads in place, and the gated RMSNorm runs per group of
+d_inner / G channels (Nemotron-H's ``MambaRMSNormGated``); the head count
+may be set apart from ``expand`` (``cfg.ssm_n_heads``).  One group keeps
+the head-broadcast views and the whole-width norm.  Decode takes one
+group only.  The full-sequence block runs the scan in the
 hand-written ``ssd_scan`` kernel (its plain version on the CPU), which
 also hands back the final state for the decode cache.  Decode is the O(1)
 recurrence in plain PyTorch
@@ -27,12 +34,15 @@ Pytree = Any
 
 
 def _dims(cfg: ArchConfig):
+    """(d_inner, heads, head dim, state, conv width, in_proj width); B
+    and C are G·state wide for G groups."""
     d_inner = cfg.d_inner
     H = cfg.ssm_heads
     P = cfg.ssm_head_dim
     N = cfg.ssm_state
-    conv_dim = d_inner + 2 * N          # conv over (x, B, C); one group
-    d_in_proj = 2 * d_inner + 2 * N + H  # z, x, B, C, dt
+    GN = cfg.ssm_groups * N
+    conv_dim = d_inner + 2 * GN          # conv over (x, B, C)
+    d_in_proj = 2 * d_inner + 2 * GN + H  # z, x, B, C, dt
     return d_inner, H, P, N, conv_dim, d_in_proj
 
 
@@ -66,7 +76,20 @@ def mamba_init(gen: torch.Generator, cfg: ArchConfig,
 
 def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
     d_inner, H, P, N, _, _ = _dims(cfg)
-    return torch.split(proj, [d_inner, d_inner, N, N, H], dim=-1)
+    GN = cfg.ssm_groups * N
+    return torch.split(proj, [d_inner, d_inner, GN, GN, H], dim=-1)
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """rmsnorm(y·silu(z)) over the whole width (one group) or per group
+    of d_inner / G channels."""
+    G = cfg.ssm_groups
+    if G == 1:
+        return rms_norm(y * F.silu(z), scale, cfg.norm_eps)
+    shape = y.shape
+    yg = (y * F.silu(z)).reshape(*shape[:-1], G, shape[-1] // G)
+    return rms_norm(yg, scale.reshape(G, -1), cfg.norm_eps).reshape(shape)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -127,14 +150,21 @@ def mamba_block(p: Pytree, x: torch.Tensor, cfg: ArchConfig,
 
     xbc_raw = torch.cat([xs, Bm, Cm], dim=-1)
     xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
-    xs, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
+    G = cfg.ssm_groups
+    xs, Bm, Cm = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
 
     dt = _softplus(dt_raw.float() + p["dt_bias"])               # (B,S,H)
     A = -torch.exp(p["A_log"])                                  # (H,)
     xh = xs.reshape(Bsz, S, H, P)
-    # head-broadcast views (head stride 0): the kernel reads them in place
-    Bh = Bm[:, :, None, :].expand(Bsz, S, H, N).to(x.dtype)
-    Ch = Cm[:, :, None, :].expand(Bsz, S, H, N).to(x.dtype)
+    if G == 1:
+        # head-broadcast views (head stride 0): the kernel reads them in
+        # place
+        Bh = Bm[:, :, None, :].expand(Bsz, S, H, N).to(x.dtype)
+        Ch = Cm[:, :, None, :].expand(Bsz, S, H, N).to(x.dtype)
+    else:
+        # (B, S, G, N) groups, read in place too
+        Bh = Bm.reshape(Bsz, S, G, N).to(x.dtype)
+        Ch = Cm.reshape(Bsz, S, G, N).to(x.dtype)
 
     ck = min(chunk, S)
     while S % ck:
@@ -145,8 +175,7 @@ def mamba_block(p: Pytree, x: torch.Tensor, cfg: ArchConfig,
                               A[None, None, :] * dt, Bh, Ch, chunk=ck,
                               return_state=True)
     y = y + xh * p["D"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(Bsz, S, d_inner)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = _gated_norm(y.reshape(Bsz, S, d_inner), z, p["norm"], cfg)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"].to(x.dtype))
     if return_cache:
         K = cfg.ssm_conv
@@ -170,8 +199,11 @@ def init_mamba_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
 
 def mamba_decode_step(p: Pytree, x: torch.Tensor, cache: Pytree,
                       cfg: ArchConfig) -> Tuple[torch.Tensor, Pytree]:
-    """One-token decode. x: (B, 1, D).  The cache's tensors are updated in
-    place; the same tree is returned."""
+    """One-token decode. x: (B, 1, D), one B/C group.  The cache's tensors
+    are updated in place; the same tree is returned."""
+    if cfg.ssm_groups != 1:
+        raise ValueError(f"{cfg.name}: Mamba2 decode takes one B/C group, "
+                         f"not {cfg.ssm_groups}")
     Bsz = x.shape[0]
     d_inner, H, P, N, conv_dim, _ = _dims(cfg)
     proj = torch.einsum("bsd,de->bse", x, p["in_proj"].to(x.dtype))[:, 0]

@@ -1,9 +1,11 @@
 """Decoder backbone: the port of the JAX package's models/transformer.py
 for every block kind: ``attn``, ``local``, ``mamba`` (Mamba2,
 models/ssm.py), ``shared_attn`` (Zamba2's weight-tied full-attention
-block) and ``cross`` (self attention, then tanh-gated cross attention over
-the batch's ``image_embeds`` (B, n_patches, D)); mixtures of experts
-(models/moe.py) in place of the MLP where ``cfg.use_moe``; audio codebooks
+block), ``cross`` (self attention, then tanh-gated cross attention over
+the batch's ``image_embeds`` (B, n_patches, D)), and the port's own
+single-mixer kinds ``attn_only`` and ``moe`` (Nemotron-H; models/config.py);
+mixtures of experts (models/moe.py) in place of the MLP where
+``cfg.use_moe``; audio codebooks
 (musicgen: summed per-codebook embeddings of (B, n_cb, S) tokens,
 per-codebook logits (B, S, n_cb·V)).
 
@@ -20,7 +22,11 @@ whose ``grad`` cannot run checkpoint's saved-tensor hooks: the vectorized
 executor's ``vmap(grad_and_value(...))`` does not remat.  As in the
 reference, a ``cross`` block skips its cross attention when the batch
 holds no ``image_embeds``, and its prefill then leaves the cache without
-the ``ck``/``cv`` that decode reads.
+the ``ck``/``cv`` that decode reads.  A stack of the port's single-mixer
+kinds (``cfg.single_mixer``) remats each block on its own, and with
+``cfg.ce_chunk`` the loss runs the head and the CE in chunks of tokens
+(``layers.chunked_cross_entropy``).  Prefill and decode do not take the
+``attn_only`` and ``moe`` kinds.
 
 Entry points:
   init_params(cfg, gen)                        → params
@@ -57,9 +63,10 @@ from .attention import (attn_init, cross_attention, decode_cross_attention,
                         decode_self_attention, init_cross_cache,
                         init_kv_cache, kv_to_cache, self_attention)
 from .config import ArchConfig
-from .layers import (cross_entropy_loss, dtype_of, embed_init, gated_mlp,
-                     gated_mlp_init, he_init, rms_norm, softcap)
-from .moe import moe_block, moe_init
+from .layers import (chunked_cross_entropy, cross_entropy_loss, dtype_of,
+                     embed_init, gated_mlp, gated_mlp_init, he_init,
+                     rms_norm, softcap)
+from .moe import moe_block, moe_init, moe_layer, moe_layer_init
 from .ssm import init_mamba_cache, mamba_block, mamba_decode_step, mamba_init
 from ..sharding.spmd import (act_in, batch_placements, model_shard, region,
                              split_on, unsharded_on, weight_in)
@@ -99,6 +106,10 @@ def _block_init(gen: torch.Generator, kind: str, cfg: ArchConfig,
 
     if kind == "mamba":
         return {"ln1": zeros(), "mamba": mamba_init(gen, cfg, dtype)}
+    if kind == "attn_only":
+        return {"ln1": zeros(), "attn": attn_init(gen, cfg, dtype)}
+    if kind == "moe":
+        return {"ln1": zeros(), "moe": moe_layer_init(gen, cfg, dtype)}
     p = {"ln1": zeros(), "attn": attn_init(gen, cfg, dtype), "ln2": zeros()}
     if use_moe and kind in ("attn", "local", "cross"):
         p["moe"] = moe_init(gen, cfg, dtype)
@@ -210,8 +221,13 @@ def _apply_block(kind: str, p: Pytree, x: torch.Tensor, cfg: ArchConfig,
         return x + mamba_block(p["mamba"],
                                rms_norm(x, p["ln1"], cfg.norm_eps), cfg)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "moe":
+        return x + moe_layer(p["moe"], h, cfg)
     x = x + self_attention(p["attn"], h, positions, cfg,
-                           _window(kind, cfg, window_override))
+                           _window(kind, cfg, window_override),
+                           sdpa=kind == "attn_only")
+    if kind == "attn_only":
+        return x
     if kind == "cross" and image_embeds is not None:
         x = _gated_cross(p, x, cfg, lambda hx: cross_attention(
             p["xattn"], hx, image_embeds, cfg))
@@ -220,10 +236,16 @@ def _apply_block(kind: str, p: Pytree, x: torch.Tensor, cfg: ArchConfig,
 
 def _superblock(params_i: Pytree, shared: Optional[Pytree], x: torch.Tensor,
                 cfg: ArchConfig, positions: torch.Tensor,
-                image_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+                image_embeds: Optional[torch.Tensor],
+                remat_blocks: bool = False) -> torch.Tensor:
     for i in range(len(cfg.pattern)):
         kind, p, window = _at(cfg, i, params_i, shared)
-        x = _apply_block(kind, p, x, cfg, positions, window, image_embeds)
+        if remat_blocks:
+            x = checkpoint(_apply_block, kind, p, x, cfg, positions, window,
+                           image_embeds, use_reentrant=False)
+        else:
+            x = _apply_block(kind, p, x, cfg, positions, window,
+                             image_embeds)
     return x
 
 
@@ -323,35 +345,49 @@ def _under_func_transform() -> bool:
     return torch._C._functorch.peek_interpreter_stack() is not None
 
 
-def forward(cfg: ArchConfig, params: Pytree,
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Full-sequence forward → logits (B, S, V), or (B, S, n_cb·V) for
-    codebook tokens (B, n_cb, S).  With ``cfg.remat`` and autograd on,
-    each superblock keeps only its input and recomputes the rest in the
-    backward pass; under a ``torch.func`` transform (the vectorized
-    executor's ``vmap(grad_and_value(...))``) it does not remat, since
-    ``torch.func.grad`` cannot run checkpoint's saved-tensor hooks, and
-    recomputation changes memory, never values.  ``batch["image_embeds"]``
-    (B, n_patches, D), if given, feeds the ``cross`` blocks."""
+def _remat(cfg: ArchConfig) -> bool:
+    """Whether to remat: ``cfg.remat`` with autograd on, outside a
+    ``torch.func`` transform."""
+    return (cfg.remat and torch.is_grad_enabled()
+            and not _under_func_transform())
+
+
+def hidden(cfg: ArchConfig, params: Pytree,
+           batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The final-normed hidden states (B, S, D) that ``forward``'s head
+    reads (see ``forward``)."""
     tokens = batch["tokens"]
     positions = _positions(tokens)
     image_embeds = _image_embeds(cfg, batch)
     x = _embed(cfg, params, tokens, dtype_of(cfg.dtype))
     shared = params.get("shared_attn")
-    remat = (cfg.remat and torch.is_grad_enabled()
-             and not _under_func_transform())
+    remat = _remat(cfg)
+    per_block = remat and cfg.single_mixer
     for params_i in _unstack(params["blocks"], cfg.n_super):
-        if remat:
+        if remat and not per_block:
             x = checkpoint(_superblock, params_i, shared, x, cfg, positions,
                            image_embeds, use_reentrant=False)
         else:
             x = _superblock(params_i, shared, x, cfg, positions,
-                            image_embeds)
+                            image_embeds, per_block)
     for i in _layer_positions(cfg)[:cfg.n_rem]:
         x = _apply_block(cfg.pattern[i], params["rem"][f"pos{i}"], x, cfg,
                          positions, None, image_embeds)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(cfg, params, x)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward(cfg: ArchConfig, params: Pytree,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Full-sequence forward → logits (B, S, V), or (B, S, n_cb·V) for
+    codebook tokens (B, n_cb, S).  With ``cfg.remat`` and autograd on,
+    each superblock (each block, in a stack of the port's single-mixer
+    kinds) keeps only its input and recomputes the rest in the backward
+    pass; under a ``torch.func`` transform (the vectorized executor's
+    ``vmap(grad_and_value(...))``) it does not remat, since
+    ``torch.func.grad`` cannot run checkpoint's saved-tensor hooks, and
+    recomputation changes memory, never values.  ``batch["image_embeds"]``
+    (B, n_patches, D), if given, feeds the ``cross`` blocks."""
+    return _logits(cfg, params, hidden(cfg, params, batch))
 
 
 # ============================================================ loss / train
@@ -359,7 +395,16 @@ def loss_fn(cfg: ArchConfig, params: Pytree,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean token cross-entropy of ``forward`` against ``batch["labels"]``
     ((B, S), or (B, n_cb, S) for codebooks), in fp32; the logsumexp form
-    when ``cfg.efficient_ce`` is set."""
+    when ``cfg.efficient_ce`` is set, in chunks of ``cfg.ce_chunk`` tokens
+    when that is set (an untied head, plain tensors)."""
+    if cfg.ce_chunk:
+        if cfg.tie_embeddings or cfg.n_codebooks or \
+                isinstance(params["head"], DTensor):
+            raise ValueError(f"{cfg.name}: ce_chunk takes an untied head of "
+                             f"plain tensors and no codebooks")
+        return chunked_cross_entropy(hidden(cfg, params, batch),
+                                     params["head"], batch["labels"],
+                                     cfg.ce_chunk, _remat(cfg))
     logits = forward(cfg, params, batch)
     labels = batch["labels"]
     if cfg.n_codebooks:

@@ -226,6 +226,15 @@ def param_spec_for(path_names: Sequence[str], shape: Sequence[int], mesh,
             return _pick_spec(shape, mesh, model_cands=(-3,),
                               data_cands=(-2,))
         return _pick_spec(shape, mesh, model_cands=(-2,), data_cands=(-1,))
+    if name in ("up", "down") and "moe" in ctx:
+        # a 'moe' block's experts (..., E, D, F) and (..., E, F, D): E over
+        # the model axis; its shared expert (D, Fs) and (Fs, D): Fs
+        if "shared" in ctx:
+            return _pick_spec(shape, mesh,
+                              model_cands=(-1,) if name == "up" else (-2,),
+                              data_cands=(-2,) if name == "up" else (-1,))
+        return _pick_spec(shape, mesh, model_cands=(-3,),
+                          data_cands=(-1,) if name == "up" else (-2,))
     if name == "in_proj":                    # (..., D, d_in_proj)
         return _pick_spec(shape, mesh, model_cands=(-1,), data_cands=(-2,))
     if name == "out_proj":                   # (..., d_inner, D)

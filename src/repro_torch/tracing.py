@@ -45,6 +45,12 @@ SPANS: Dict[str, str] = {
                       "the card before it uploads",
     "train.optimizer": "optimizer_share.train: optimizer and apply of one "
                        "make_train_step step",
+    "moe": "moe_share.train: one 'moe' block's mixer (models/moe.py "
+           "moe_layer: router, dispatch, held experts, combine, shared "
+           "expert), its forward passes (remat's rerun too), not autograd's "
+           "backward",
+    "moe.experts": "moe_experts_roofline.train: the held experts' matrix "
+                   "products inside ``moe``, forward passes only",
     # a bare record_function in kernels/ssd_scan.py, opened whether or
     # not tracing is on, since chip_smoke.py profiles it without enabling
     # tracing; it is never kept in memory
@@ -56,6 +62,13 @@ SPANS: Dict[str, str] = {
 COUNTERS: Dict[str, str] = {
     "fl.local_steps": "executor_device_ms_per_step.fl: local steps of "
                       "the executor's groups",
+    "moe.routed_pairs": "moe_experts_roofline.train and the hybrid train "
+                        "cell's model FLOPs: token-expert pairs a 'moe' "
+                        "block computed on its held experts, in each "
+                        "forward pass (remat's rerun counts again)",
+    "moe.max_expert_rows": "expert_load_max_over_mean.train: the largest "
+                           "held expert's rows in a 'moe' block, summed "
+                           "over the calls counted as moe.routed_pairs",
 }
 
 # the attrs a span takes from the span it opens in

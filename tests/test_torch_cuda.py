@@ -806,3 +806,99 @@ def test_executor_launches_adam_once_a_step_on_card():
     for a, b in zip(tree_leaves(rows["kernel"][0]),
                     tree_leaves(rows["by_hand"][0])):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_reads_grouped_b_and_c_in_place_on_card(dtype):
+    """Grouped B and C (b, l, g, n), head i reading group i // (h / g)
+    (Nemotron-H's 64 heads in 8 groups at a short length): the kernel's y
+    and state equal those of B and C expanded to the heads bit for bit
+    (the same rows loaded), and the plain version's within
+    test_ssd_scan_matches_plain_on_card's tolerances; one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else dict(rtol=BF16_ULP, atol=1e-3))
+    g = torch.Generator("cuda").manual_seed(5)
+    for (b, l, h, p, n, groups) in ((2, 300, 8, 64, 128, 2),
+                                    (1, 1024, 64, 64, 128, 8),
+                                    (2, 129, 6, 16, 36, 3)):
+        x = (torch.randn((b, l, h, p), generator=g, device="cuda")
+             * 0.5).to(dtype)
+        a = -torch.rand((b, l, h), generator=g, device="cuda") * 0.3
+        B, C = ((torch.randn((b, l, groups, n), generator=g, device="cuda")
+                 * 0.5).to(dtype) for _ in range(2))
+        before = ssd_scan.launches
+        y, state = ssd_scan(x, a, B, C, return_state=True)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == before + 1
+        r = h // groups
+        y2, state2 = ssd_scan(x, a, B.repeat_interleave(r, 2),
+                              C.repeat_interleave(r, 2), return_state=True)
+        assert torch.equal(y, y2) and torch.equal(state, state2)
+        want_y, want_state = ssd_scan_plain(x, a, B, C, return_state=True)
+        label = f"{(b, l, h, p, n, groups)}"
+        torch.testing.assert_close(y, want_y, **tol, msg=label)
+        torch.testing.assert_close(state, want_state, rtol=1e-4, atol=1e-4,
+                                   msg=label)
+
+
+@pytest.mark.cuda
+def test_hybrid_train_step_on_card_as_on_cpu():
+    """One make_train_step step of Nemotron-H at a small size (pattern
+    ``MEM*E``, grouped B/C, 8 experts top 2 with 4 held, fp32) on the card
+    (the grouped scan in the kernel, the dropless MoE, SDPA attention, the
+    chunked CE, remat block by block) against the same step on the CPU:
+    the loss within 1e-5 relative, the first moment within 2e-4 and the
+    second within 4e-4 relative L2 (v holds g², so its gap is twice g's;
+    the card's fp32 SDPA and grouped products sum in other orders than
+    the CPU's, and the Mamba dt_bias gradient, a sum over every position,
+    reads 5.6e-5 apart); the MoE layers route the same pairs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch import tracing
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_map, tree_paths
+    from repro_torch.models import make_train_step
+
+    cfg = get_config("nemotron-3-nano-30b-a3b").replace(
+        n_layers=5, pattern=("mamba", "moe", "mamba", "attn_only", "moe"),
+        d_model=128, n_heads=4, n_kv_heads=2, head_dim=32, d_ff=64,
+        vocab=256, n_experts=8, top_k=2, held_experts=4,
+        shared_expert_ff=96, ssm_state=32, ssm_head_dim=32, ssm_n_heads=4,
+        ssm_groups=2, ce_chunk=128, dtype="float32")
+    step, init_state = make_train_step(cfg)
+    state = init_state(torch.Generator("cuda").manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (2, 2, 256), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1))
+    batch = {"tokens": tok[0], "labels": tok[1]}
+    cpu_state = {"params": tree_map(lambda t: t.cpu(), state["params"]),
+                 "opt": {"count": 0, **{k: tree_map(lambda t: t.cpu(), v)
+                                        for k, v in state["opt"].items()
+                                        if k != "count"}}}
+    tracing.drain()
+    tracing.enable()
+    try:
+        before = ssd_scan.launches
+        card, loss = step(state, batch)
+        torch.cuda.synchronize()
+        assert ssd_scan.launches == before + 2 * 2     # forward and remat
+        _, card_counts = tracing.drain()
+        cpu, cpu_loss = step(cpu_state,
+                             {k: t.cpu() for k, t in batch.items()})
+        _, cpu_counts = tracing.drain()
+    finally:
+        tracing.enable(False)
+    assert card_counts == cpu_counts
+    torch.testing.assert_close(loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+    for key in ("m", "v"):
+        for path, t in tree_paths(card["opt"][key]):
+            w = cpu["opt"][key]
+            for part in path:
+                w = w[part]
+            if w.norm() == 0:
+                assert t.norm() == 0, (key, path)
+                continue
+            rel = float((t.cpu() - w).norm() / w.norm())
+            assert rel <= {"m": 2e-4, "v": 4e-4}[key], (key, path, rel)

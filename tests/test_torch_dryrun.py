@@ -27,7 +27,8 @@ from repro.configs import INPUT_SHAPES as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
 from repro.launch import hlo_analysis as jax_hlo
 from repro.launch.variants import VARIANTS as JAX_VARIANTS
-from repro_torch.configs import INPUT_SHAPES, get_config, list_architectures
+from repro_torch.configs import (INPUT_SHAPES, PORT_ONLY, get_config,
+                                 list_architectures)
 from repro_torch.configs.shapes import InputShape
 from repro_torch.launch import cost_analysis, dryrun
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
@@ -53,7 +54,8 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.mark.parametrize("arch", list_architectures())
+@pytest.mark.parametrize("arch", [a for a in list_architectures()
+                                  if a not in PORT_ONLY])
 def test_formulas_equal_the_reference(arch):
     for name, shape in INPUT_SHAPES.items():
         cfg, jcfg = get_config(arch), jax_get_config(arch)
@@ -63,6 +65,19 @@ def test_formulas_equal_the_reference(arch):
         assert n == jax_hlo.active_param_count(jcfg)
         assert cost_analysis.model_flops(cfg, shape, n) == \
             jax_hlo.model_flops(jcfg, JAX_SHAPES[name], n)
+
+
+def test_port_only_configs_count_their_active_params():
+    """The configs the JAX package lacks: nemotron-3-nano-30b-a3b touches
+    its 6 of 128 relu² experts (2·D·F each) in each of its 23 'moe'
+    blocks, everything else on every token."""
+    assert PORT_ONLY == ("nemotron-3-nano-30b-a3b",)
+    cfg = get_config("nemotron-3-nano-30b-a3b")
+    n = cost_analysis.active_param_count(cfg)
+    assert n == 31_577_798_976 - 23 * 122 * 2 * 2688 * 1856 == 3_579_935_040
+    train = INPUT_SHAPES["train_4k"]
+    assert cost_analysis.model_flops(cfg, train, n) == \
+        6.0 * n * train.global_batch * train.seq_len
 
 
 def test_variants_equal_the_reference():

@@ -44,7 +44,9 @@ def test_import_leaves_jax_and_repro_out():
             "repro_torch.analysis.rules.determinism, "
             "repro_torch.analysis.rules.torch_safety, "
             "repro_torch.analysis.rules.contracts, "
-            "repro_torch.launch.sharded, repro_torch.sharding.spmd\n"
+            "repro_torch.launch.sharded, repro_torch.sharding.spmd, "
+            "repro_torch.tracing\n"
+            "repro_torch.configs.get_config('nemotron-3-nano-30b-a3b')\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')]\n"

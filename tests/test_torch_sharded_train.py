@@ -43,7 +43,7 @@ from repro.checkpoint import load_pytree as jax_load_pytree
 from repro.configs import get_config as jax_get_config
 from repro.models import make_train_step as jax_make_train_step
 from repro_torch.checkpoint import save_pytree
-from repro_torch.configs import get_config, list_architectures
+from repro_torch.configs import PORT_ONLY, get_config, list_architectures
 from repro_torch.convert import train_state_from_numpy, train_state_to_numpy
 from repro_torch.core.flatten import tree_map, tree_paths
 from repro_torch.kernels import flash_attention, int8_encode, ssd_scan
@@ -61,7 +61,8 @@ from torch_parity_common import (GRAD_REL_L2, LAYER_TOL, LOSS_RTOL,
 REPO = Path(__file__).resolve().parents[1]
 TESTS = Path(__file__).resolve().parent
 GRAD_FLOOR = 1e-2            # as tests/test_torch_pretrain.py
-OTHERS = tuple(a for a in list_architectures() if a not in worker.STEPPED)
+OTHERS = tuple(a for a in list_architectures()
+               if a not in worker.STEPPED and a not in PORT_ONLY)
 JAX_ARCH = "mamba2-130m"
 
 

@@ -151,6 +151,71 @@ def test_broadcast_b_and_c_read_as_copies(dtype):
            TOL[dtype])
 
 
+GROUPED = [(2, 100, 8, 16, 8, 2, 32), (1, 129, 6, 8, 16, 3, 64),
+           (2, 64, 4, 16, 8, 1, 32)]
+
+
+def _grouped(b, l, h, p, n, g, seed):
+    """x, a_dt and grouped B, C (b, l, g, n), and B, C expanded to the
+    heads (head i reads group i // (h / g))."""
+    x, a, _, _ = _inputs(b, l, h, p, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    Bg = rng.normal(size=(b, l, g, n)).astype(np.float32) * 0.5
+    Cg = rng.normal(size=(b, l, g, n)).astype(np.float32) * 0.5
+    grouped = _torch((x, a, Bg, Cg), torch.float32)
+    r = h // g
+    expanded = grouped[:2] + tuple(t.repeat_interleave(r, 2)
+                                   for t in grouped[2:])
+    return grouped, expanded
+
+
+@pytest.mark.parametrize("b,l,h,p,n,g,chunk", GROUPED)
+def test_grouped_b_and_c_equal_the_expanded_heads(b, l, h, p, n, g, chunk):
+    """B and C in g groups (Mamba2's n_groups) give the per-head call's y
+    and final state, with each head reading its group, within 1e-6 of
+    max |y| (C·Bᵀ taken once a group sums in another order); their
+    gradients are the expanded call's summed over each group's heads."""
+    grouped, expanded = _grouped(b, l, h, p, n, g, seed=11)
+    y, state = ssd_scan(*grouped, chunk=chunk, return_state=True)
+    want_y, want_state = ssd_scan(*expanded, chunk=chunk, return_state=True)
+    torch.testing.assert_close(y, want_y, rtol=0,
+                               atol=1e-6 * float(want_y.abs().max()))
+    torch.testing.assert_close(state, want_state, rtol=0,
+                               atol=1e-6 * float(want_state.abs().max()))
+    gy = torch.randn(y.shape, generator=torch.Generator().manual_seed(2))
+
+    def grads(args):
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        out = ssd_scan(*leaves, chunk=chunk)
+        return torch.autograd.grad(out, leaves, gy)
+    got, want = grads(grouped), grads(expanded)
+    r = h // g
+    want = want[:2] + tuple(w.reshape(b, l, g, r, n).sum(3)
+                            for w in want[2:])
+    for name, t, w in zip(("x", "a_dt", "B", "C"), got, want):
+        assert t.shape == w.shape, name
+        torch.testing.assert_close(t, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   msg=name)
+
+
+def test_grouped_scan_under_vmap_equals_a_loop():
+    """``_SSDScan``'s vmap rule folds the vmapped dim into the batch with
+    grouped B and C too: the vmapped scan and its gradient equal the
+    calls one by one."""
+    from torch.func import grad, vmap
+    grouped, _ = _grouped(3, 40, 4, 8, 8, 2, seed=12)
+
+    def loss(x, a, B, C):
+        return ssd_scan(x[None], a[None], B[None], C[None], chunk=16).sum()
+
+    got = vmap(grad(loss, argnums=(0, 2, 3)))(*grouped)
+    for i in range(3):
+        want = grad(loss, argnums=(0, 2, 3))(*(t[i] for t in grouped))
+        for t, w in zip(got, want):
+            torch.testing.assert_close(t[i], w, rtol=1e-6, atol=1e-6)
+
+
 def test_input_checks():
     x, a, B, C = _torch(_inputs(1, 8, 2, 4, 3, seed=0), torch.float32)
     with pytest.raises(ValueError, match="b, l, h, p"):
@@ -159,6 +224,8 @@ def test_input_checks():
         ssd_scan(x, a[:, :4], B, C)
     with pytest.raises(ValueError, match="B and C must be"):
         ssd_scan(x, a, B, C[..., :2])
+    with pytest.raises(ValueError, match="g dividing"):
+        ssd_scan(x, a, B[:, :, :0], C[:, :, :0])
     with pytest.raises(ValueError, match="empty"):
         ssd_scan(x[..., :0], a, B, C)
     with pytest.raises(TypeError, match="float32 or bfloat16"):

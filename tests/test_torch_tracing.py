@@ -163,3 +163,38 @@ def test_train_step_gives_train_optimizer():
     assert [(r.name, r.parent, r.attrs) for r in records] == [
         ("train.optimizer", None, {"step": 0})]
     assert state["opt"]["count"] == 1
+
+
+def test_train_step_of_a_hybrid_gives_the_moe_spans_and_counters():
+    """One make_train_step step of Nemotron-H at a CPU size (the pattern
+    ``MEM*E``, 8 experts, top 2, all held), remat block by block: each
+    'moe' block opens ``moe`` with ``moe.experts`` inside, in the forward
+    pass and in remat's rerun, and the counters count every routed pair
+    of each pass (T·k a block and pass when all experts are held) and
+    the largest expert's rows."""
+    cfg = get_config("nemotron-3-nano-30b-a3b").replace(
+        n_layers=5, pattern=("mamba", "moe", "mamba", "attn_only", "moe"),
+        d_model=32, n_heads=2, n_kv_heads=1, head_dim=16, d_ff=16, vocab=64,
+        n_experts=8, top_k=2, shared_expert_ff=24, ssm_state=8,
+        ssm_head_dim=8, ssm_n_heads=4, ssm_groups=2, ce_chunk=16,
+        dtype="float32", remat=True)
+    step, init_state = make_train_step(cfg)
+    state = init_state(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    tracing.enable()
+    step(state, {"tokens": tokens, "labels": tokens})
+    tracing.enable(False)
+    records, counts = tracing.drain()
+    moe = [r for r in records if r.name == "moe"]
+    experts = [r for r in records if r.name == "moe.experts"]
+    passes = 2                            # the forward and remat's rerun
+    assert len(moe) == len(experts) == 2 * passes
+    assert all(r.parent == "moe" for r in experts)
+    T = tokens.numel()
+    assert counts["moe.routed_pairs"] == 2 * passes * T * cfg.top_k
+    assert T * cfg.top_k / cfg.n_experts * 2 * passes <= \
+        counts["moe.max_expert_rows"] <= 2 * passes * T
+    assert {"moe", "moe.experts"} <= set(tracing.SPANS)
+    assert {"moe.routed_pairs", "moe.max_expert_rows"} <= \
+        set(tracing.COUNTERS)

@@ -23,7 +23,7 @@ from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
 from repro.models import layers as jax_layers
 from repro.models.attention import self_attention as jax_self_attention
-from repro_torch.configs import get_config, list_architectures
+from repro_torch.configs import PORT_ONLY, get_config, list_architectures
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels import flash_attention, reset_launches
 from repro_torch.launch.serve import generate
@@ -42,15 +42,34 @@ MOE_AND_CROSS = ("arctic-480b", "llama-3.2-vision-11b",
 
 
 # ------------------------------------------------------------- configs
+def _shared_fields(cfg) -> dict:
+    """The config's fields that the JAX package's ArchConfig has; the
+    port's own fields must sit at their defaults."""
+    ours = dataclasses.asdict(cfg)
+    jax_fields = {f.name for f in dataclasses.fields(jax_config.ArchConfig)}
+    defaults = {f.name: f.default for f in dataclasses.fields(cfg)}
+    assert {k: v for k, v in ours.items() if k not in jax_fields} == \
+        {k: defaults[k] for k in ours if k not in jax_fields}, cfg.name
+    return {k: v for k, v in ours.items() if k in jax_fields}
+
+
 def test_architectures_and_configs_match():
-    assert list_architectures() == jax_list_architectures()
-    for arch in list_architectures():
+    """The JAX registry plus the port-only configs (``PORT_ONLY``); each
+    shared config equal to the reference's, field for field, the port's
+    own fields at their defaults."""
+    assert list_architectures() == sorted(jax_list_architectures()
+                                          + list(PORT_ONLY))
+    for arch in jax_list_architectures():
         mine, ref = get_config(arch), jax_get_config(arch)
-        assert dataclasses.asdict(mine) == dataclasses.asdict(ref), arch
+        assert _shared_fields(mine) == dataclasses.asdict(ref), arch
         assert param_count(mine) == jax_config.param_count(ref), arch
-        assert (dataclasses.asdict(mine.reduced())
+        assert (_shared_fields(mine.reduced())
                 == dataclasses.asdict(ref.reduced())), arch
     assert param_count(get_config("gemma2-2b")) == 2_614_222_080
+    # Nemotron 3 Nano 30B-A3B: 31.6B parameters (the analytic count, which
+    # leaves out the Mamba conv bias, as the reference's count does)
+    assert param_count(get_config("nemotron-3-nano-30b-a3b")) == \
+        31_577_798_976
 
 
 @pytest.mark.parametrize("arch", MOE_AND_CROSS)

@@ -147,7 +147,7 @@ def run(rank: int, world: int, out: str) -> None:
     dist.init_process_group("gloo", rank=rank, world_size=world,
                             store=dist.FileStore(f"{out}/store", world))
     from repro_torch.checkpoint import save_pytree
-    from repro_torch.configs import list_architectures
+    from repro_torch.configs import PORT_ONLY, list_architectures
     from repro_torch.convert import train_state_to_numpy
     from repro_torch.launch.mesh import AbstractMesh, to_device_mesh
     from repro_torch.launch.sharded import make_sharded_train_step
@@ -157,7 +157,7 @@ def run(rank: int, world: int, out: str) -> None:
     device_mesh = to_device_mesh(mesh, "cpu")
     report = {"scan": scan_errors(device_mesh)}
     archs = list(STEPPED) + [a for a in list_architectures()
-                             if a not in STEPPED]
+                             if a not in STEPPED and a not in PORT_ONLY]
     for arch in archs:
         cfg = train_config(arch)
         plain_step, plain_init = make_train_step(cfg)
