@@ -134,12 +134,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    mesh of the card at the VLM's decode shape against
    reference_decode_attention (fp32, within 2e-5).
 4. Training (models.make_train_step, the decoders' train step; the scan's
-   forward in the ssd_scan kernel under autograd, its backward the plain
-   version's): the scan's Function at both training shapes against
-   the plain version (its y and final state within the bounds of phase
-   2, the grads of x, a_dt and the head-broadcast B/C views' bases
-   against autograd through the plain version, and the plain backward
-   timed);
+   forward in the ssd_scan kernel under autograd, its backward in the
+   backward kernels): the scan's Function at both training shapes and
+   the Nemotron cell's grouped one (SSD_AUTOGRAD) against the plain
+   version (its y and final state within the bounds of phase 2, the
+   grads of x, a_dt, B and C against autograd through the plain version
+   within SSD_GRAD_TOL's gate, one backward launch a call, the same bits
+   twice, and the backward kernels timed beside the plain backward);
    flash_attention refusing autograd; musicgen-medium (48 layers, d 1536,
    4 codebooks) serving 2 prompts of 1024 frames through flash_attention
    (48 launches) and 8 greedy tokens, held as the Gemma 2 run is; then
@@ -148,8 +149,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    3e-4, remat, efficient_ce, fp32 params and bf16 activations, the loss
    falling), zamba2-1.2b (2 × 4096, 3 steps) and musicgen-medium (2 ×
    1024, 3 steps), each with its launches counted (ssd_scan twice a remat'd
-   Mamba layer a step) and a profiled step (busy share, the scan's forward
-   and plain backward shares).  Before mamba2-130m's steps its first
+   Mamba layer a step, its backward kernels once) and a profiled step
+   (busy share, the scan's forward and backward shares).  Before mamba2-130m's steps its first
    step's grads in bf16 and in fp32, and zamba2-1.2b's in bf16, are held
    leaf by leaf against the plain scan's (within twice what regrouping the
    plain scan's sums moves each leaf by), every scan call of the kernel
@@ -357,10 +358,22 @@ TRAIN_LR = 3e-4
 # (chunks of SSD_REGROUP_CHUNK against TILE) moves that leaf by, measured in
 # the same run on the same batch; the serve runs' rule for logits
 TRAIN_GRAD_FACTOR = SERVE_REGROUP_FACTOR
-# the ssd_scan Function's grads against autograd through ssd_scan_plain: the
-# same fp32 graph on the same inputs, so equal but for cuBLAS's choice of
-# algorithm: within SSD_GRAD_TOL of each input's max |grad|
-SSD_GRAD_TOL = 1e-5
+# the ssd_scan Function's grads (the backward kernels) against autograd
+# through ssd_scan_plain: the kernels split every fp32 operand of a product
+# into a bf16 hi and lo pair (a residual of up to 2^-16 of it) and sum in
+# their own order; bf16 inputs are exact operands, so both sides compute
+# the fp32 VJP and round it once to bf16, where the roundings may fall an
+# ulp apart (fp32 inputs, split on load to 16 significant bits, would err
+# by about 1e-5 of max |grad|, inside the same 1e-4): within
+# SSD_GRAD_TOL of each input's max |grad|, plus one bf16 ulp of each
+# element for bf16 grads (tests/test_torch_ssd.py holds a model of the
+# kernels' arithmetic within the same gate)
+SSD_GRAD_TOL = 1e-4
+# the scan under autograd at the train runs' shapes (TRAIN_RUNS[:2], B and
+# C head-broadcast views) and the Nemotron cell's grouped one: (arch,
+# batch, sequence, groups; None: head-broadcast)
+SSD_AUTOGRAD = (("mamba2-130m", 8, 4096, None), ("zamba2-1.2b", 2, 4096, None),
+                ("nemotron-3-nano-30b-a3b", 4, 8192, 8))
 # the scan kernels' names as the profiler lists them (fp32; bf16 passes)
 SSD_KERNEL_NAMES = ("ssd_kernel", "chunk_state_kernel", "state_pass_kernel",
                     "chunk_output_kernel")
@@ -3554,8 +3567,9 @@ def train_flops(cfg, n_params: int, batch: int, S: int) -> float:
 def _profile_train_step(train_step, state, batch) -> tuple:
     """One step under torch.profiler: the card's busy share of the step,
     and the shares of the step spent in the scan's forward kernels and in
-    its plain backward (the ``ssd_scan_plain_backward`` spans on the
-    card's timeline; None where the profiler shows none).  The profiler
+    its backward (the ``ssd_scan_plain_backward`` spans on the card's
+    timeline, the backward kernels under them; None where the profiler
+    shows none).  The profiler
     slows the host, so the shares are also given of the unprofiled step
     (``run_train`` adds them)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3709,7 +3723,7 @@ def run_train(arch: str, batch: int, S: int, steps: int, part: str,
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.core.flatten import tree_leaves
-    from repro_torch.kernels import KERNELS, reset_launches
+    from repro_torch.kernels import KERNELS, reset_launches, ssd_scan
     from repro_torch.launch.cost_analysis import tree_bytes
     from repro_torch.models import make_train_step
 
@@ -3751,6 +3765,12 @@ def run_train(arch: str, batch: int, S: int, steps: int, part: str,
     if any(launches[k] != want.get(k, 0) for k in launches):
         raise RuntimeError(f"{arch} train: launches {launches}, want "
                            f"{want} and no other")
+    # the scan's backward kernels: one launch a Mamba layer a step
+    launches["ssd_scan_backward"] = ssd_scan.backward_launches
+    if launches["ssd_scan_backward"] != steps * (in_super + rem):
+        raise RuntimeError(f"{arch} train: {launches['ssd_scan_backward']} "
+                           f"scan backward launches, want "
+                           f"{steps * (in_super + rem)}")
     with FlopCounterMode(display=False) as counter:
         state, _ = train_step(state, batches[0])
     card_flops = float(counter.get_total_flops())
@@ -3789,42 +3809,59 @@ def run_train(arch: str, batch: int, S: int, steps: int, part: str,
     return out
 
 
+def _ssd_grad_gate_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error of ``got`` over its SSD_GRAD_TOL gate against
+    ``want`` (at most 1 to pass)."""
+    w = want.detach().float()
+    tol = SSD_GRAD_TOL * float(w.abs().max())
+    if want.dtype == torch.bfloat16:
+        tol = tol + BF16_TOL["rtol"] * w.abs()
+    return float(((got.detach().float() - w).abs() / tol).max())
+
+
 def check_ssd_autograd(gen, part: str) -> dict:
-    """The ssd_scan Function on the card at the two training shapes (bf16,
-    B and C head-broadcast views, fp32 a_dt): the y and final state it
-    computes under autograd against ssd_scan_plain on the same inputs
-    (within _ssd_y_tol and SSD_FP32_TOL, as check_ssd_scan holds them);
-    its grads of x, a_dt and the views' bases (summed over heads by
-    autograd) against autograd through ssd_scan_plain on the same inputs
-    and cotangent, within SSD_GRAD_TOL of each max |grad|; and the plain
-    backward's device time at each."""
+    """The ssd_scan Function on the card at SSD_AUTOGRAD's shapes (bf16,
+    fp32 a_dt; B and C head-broadcast views, or Nemotron-H's 8 groups):
+    the y and final state it computes under autograd against
+    ssd_scan_plain on the same inputs (within _ssd_y_tol and SSD_FP32_TOL,
+    as check_ssd_scan holds them); its grads of x, a_dt, B and C (of the
+    views per head, as the Function returns them; grouped B and C's summed
+    over the group inside the kernels) against autograd through
+    ssd_scan_plain on the same inputs and cotangents (gy, and a random one
+    of the final state), within SSD_GRAD_TOL's gate, one backward launch
+    each and the same bits twice; and the backward kernels' device time
+    beside the plain backward's (its VJP from the saved inputs, what the
+    Function ran before)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import TILE, ssd_scan, ssd_scan_plain
 
     out = {}
-    for arch, batch, S, _ in TRAIN_RUNS[:2]:
+    for arch, batch, S, groups in SSD_AUTOGRAD:
         c = get_config(arch)
         b, l, h, p, n = batch, S, c.ssm_heads, c.ssm_head_dim, c.ssm_state
+        g = groups or 1
         leaves = [(_randn((b, l, h, p), gen) * 0.5).bfloat16(),
                   -_randn((b, l, h), gen).abs() * 0.3,
-                  (_randn((b, l, 1, n), gen) * 0.5).bfloat16(),
-                  (_randn((b, l, 1, n), gen) * 0.5).bfloat16()]
+                  (_randn((b, l, g, n), gen) * 0.5).bfloat16(),
+                  (_randn((b, l, g, n), gen) * 0.5).bfloat16()]
         for t in leaves:
             t.requires_grad_(True)
         gy = (_randn((b, l, h, p), gen) * 0.5).bfloat16()
+        gstate = _randn((b, h, p, n), gen) * 0.1
 
-        def scan(fn, **kw):
-            x, a, Bb, Cb = leaves
-            return fn(x, a, Bb.expand(b, l, h, n), Cb.expand(b, l, h, n),
-                      **kw)
-
+        # the Function's inputs: B and C themselves when grouped, else
+        # their head-broadcast views, whose per-head grads (what the
+        # Function returns, before autograd sums them) are held
+        x_, a_, Bb, Cb = leaves
+        views = ([x_, a_, Bb, Cb] if groups else
+                 [x_, a_, Bb.expand(b, l, h, n), Cb.expand(b, l, h, n)])
         before = ssd_scan.launches
-        y, state = scan(ssd_scan, return_state=True)
+        y, state = ssd_scan(*views, return_state=True)
         if ssd_scan.launches != before + 1 or y.grad_fn is None:
             raise RuntimeError(f"ssd_scan under autograd at {arch}'s shape: "
                                f"no kernel launch or no graph")
         with torch.no_grad():
-            want_y, want_state = scan(ssd_scan_plain, return_state=True)
+            want_y, want_state = ssd_scan_plain(*views, return_state=True)
         label = f"ssd_scan under autograd at {arch}'s shape"
         torch.testing.assert_close(y, want_y, **_ssd_y_tol(want_y),
                                    msg=lambda m: f"{label}, y: {m}")
@@ -3835,30 +3872,54 @@ def check_ssd_autograd(gen, part: str) -> dict:
                             max_abs_err(state, want_state))
         y_over_atol = y_err / _ssd_y_tol(want_y)["atol"]
         del want_y, want_state
-        got = torch.autograd.grad(y, leaves, gy, retain_graph=True)
-        want = torch.autograd.grad(scan(ssd_scan_plain), leaves, gy)
-        errs = []
-        for name, g, w in zip(("x", "a_dt", "B", "C"), got, want):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                raise RuntimeError(f"{arch} {name}: grad {g.dtype} "
-                                   f"{tuple(g.shape)}")
-            scale = float(w.float().abs().max())
-            err = max_abs_err(g, w)
-            errs.append(err / scale)
-            if not (scale > 0 and err <= SSD_GRAD_TOL * scale):
+        backward_before = ssd_scan.backward_launches
+        got = torch.autograd.grad((y, state), views, (gy, gstate),
+                                  retain_graph=True)
+        again = torch.autograd.grad((y, state), views, (gy, gstate),
+                                    retain_graph=True)
+        torch.cuda.synchronize()
+        launched = ssd_scan.backward_launches - backward_before
+        if launched != 2:
+            raise RuntimeError(f"{label}: {launched} backward launches for "
+                               f"2 backward calls")
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise RuntimeError(f"{label}: two backward runs differ")
+        del again
+        want = torch.autograd.grad(ssd_scan_plain(*views, return_state=True),
+                                   views, (gy, gstate))
+        ratios = {}
+        for name, t, w in zip(("x", "a_dt", "B", "C"), got, want):
+            if t.dtype != w.dtype or t.shape != w.shape:
+                raise RuntimeError(f"{arch} {name}: grad {t.dtype} "
+                                   f"{tuple(t.shape)}")
+            ratios[name] = _ssd_grad_gate_ratio(t, w)
+            if not (float(w.float().abs().max()) > 0
+                    and ratios[name] <= 1.0):
                 raise RuntimeError(f"ssd_scan grads at {arch}'s shape: "
-                                   f"{name} off by {err:.3g} of max "
-                                   f"{scale:.3g}")
+                                   f"{name} at {ratios[name]:.3g} of "
+                                   f"SSD_GRAD_TOL's gate")
+        del got, want
+        torch.cuda.empty_cache()
         backward_ms = time_ms(lambda: torch.autograd.grad(
-            y, leaves, gy, retain_graph=True), runs=3, warmup=1)
-        out[arch] = {"shape": (b, l, h, p, n), "max_err_y": y_err,
-                     "y_err_over_atol": y_over_atol,
+            (y, state), views, (gy, gstate), retain_graph=True), runs=5,
+            warmup=1)
+        saved = [t.detach() for t in views]
+
+        def plain_vjp():
+            _, vjp = torch.func.vjp(
+                lambda *args: ssd_scan_plain(*args, TILE, return_state=True),
+                *saved)
+            return vjp((gy, gstate))
+        plain_ms = time_ms(plain_vjp, runs=2, warmup=1)
+        out[arch] = {"shape": (b, l, h, p, n), "groups": groups,
+                     "max_err_y": y_err, "y_err_over_atol": y_over_atol,
                      "max_err_state": state_err,
-                     "max_err_over_max_grad": max(errs),
-                     "plain_backward_ms": backward_ms,
+                     "grad_err_over_gate": ratios,
+                     "backward_ms": backward_ms,
+                     "plain_backward_ms": plain_ms,
                      "kernel_forward_ms": time_ms(
-                         lambda: scan(ssd_scan).detach(), runs=5)}
-        del y, state, got, want, leaves, gy
+                         lambda: ssd_scan(*views).detach(), runs=5)}
+        del y, state, leaves, views, x_, a_, Bb, Cb, gy, gstate, saved
         torch.cuda.empty_cache()
     log(json.dumps({"ssd_autograd": out}))
     return out
@@ -4475,13 +4536,16 @@ def main() -> int:
             raise RuntimeError(f"the {run['run']} run never launched "
                                f"{row['name']}")
     # ssd_scan in training: mamba2-130m's launches (the forward, rerun by
-    # remat), its kernel forward and plain backward at the train shape
+    # remat), its kernel forward, backward and plain backward at the train
+    # shape
     mamba_train = training["train"][0]
     row_of["ssd_scan"].update({
         "train_launches": mamba_train["launches"]["ssd_scan"],
         "train_shape": mamba_train["arch"] + " (8, 4096, 24, 64, 128) bf16",
         "train_ms": training["ssd_autograd"]["mamba2-130m"][
             "kernel_forward_ms"],
+        "train_backward_ms": training["ssd_autograd"]["mamba2-130m"][
+            "backward_ms"],
         "train_plain_backward_ms": training["ssd_autograd"]["mamba2-130m"][
             "plain_backward_ms"]})
     # the federated SSM run: the scan under the executor's vmap rule, the

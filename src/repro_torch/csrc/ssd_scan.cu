@@ -1,10 +1,15 @@
 // Hand-written Hopper (sm_90a) kernels for the Mamba2 SSD chunked scan
-// (state-space duality), forward only.
+// (state-space duality): its forward and its backward.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/ssd_scan.py:
 //   chunk_state_kernel, state_pass_kernel,  <- _ssd_kernel (ssd_scan.py:24),
 //   chunk_output_kernel (bf16 inputs);         pallas_call :84
 //   ssd_kernel (fp32 inputs)
+// and adds the backward, which the JAX package leaves to jax.grad of its
+// chunked jnp oracle (models/ssm.py ssd_chunked):
+//   scan_bwd_sums, scan_bwd_pass, scan_bwd_dc, scan_bwd_dxdb
+// (the forward's kernel names are not reused: the benchmark's readers time
+// the forward by them).
 //
 // With x (b, l, h, p) already scaled by dt, a (b, l, h) = A*dt <= 0 and
 // B, C (b, l, h, n), for each (batch, head), chunk after chunk of
@@ -91,10 +96,57 @@
 // a = 0 and B = C = 0, so a ragged tail leaves the state exact (decay
 // exp(0), nothing added) and is never written to y.  All offsets are 64-bit.
 //
-// Interface: plain C, bound with ctypes.  The entry point sets the device,
-// launches on the caller's stream, does not synchronise, allocates nothing
-// (the bf16 path's workspace comes from the caller) and returns
-// cudaGetLastError().
+// Backward (ssd_scan_backward, bf16 and fp32 inputs alike): the
+// vector-Jacobian product for the cotangent gy of y and gstate of the final
+// state (Mamba2 paper, arXiv:2405.21060 sections 6-7, in chunks of kChunk),
+// in four passes:
+//   1. scan_bwd_sums, grid (chunk, head, 2 x batch): each chunk's own state
+//      S_c (as chunk_state_kernel) and decay, and the state cotangent its
+//      outputs give, Gamma_c = (gy * exp(a_cum))^T . C;
+//   2. scan_bwd_pass, one thread per (batch, head, p*n element): the
+//      entering states in the forward's order, then back from gstate the
+//      cotangent G_c of the state chunk c hands on (G = decay * G + Gamma);
+//   3. scan_bwd_dc, grid (chunk, group, batch): dC_i = exp(a_cum_i) gy_i .
+//      entering + sum_j<=i (gy_i . x_j) L_ij B_j, and each row's a_cum
+//      cotangent from the scores (sum_j<i of (gy_i . x_j)(C_i . B_j) L_ij)
+//      and from exp(a_cum_i) (C_i . that state term);
+//   4. scan_bwd_dxdb, grid (chunk, group, batch): dx_j = d_j B_j . G^T +
+//      sum_i>=j (C_i . B_j) L_ij gy_i and dB_j = d_j x_j . G + sum_i>=j
+//      (gy_i . x_j) L_ij C_i (d_j = exp(a_cum[-1] - a_cum_j)), the columns'
+//      a_cum cotangents and the chunk decay's at the last position, and da
+//      as their reverse cumulative sum over the chunk.
+// Passes 3 and 4 take the heads of a group of B and C one after another,
+// so grouped dB and dC are summed over the group in fp32 registers and
+// rounded once; a head-broadcast view's grads are per head (autograd sums
+// them through the view).  Every product is wgmma, the score tiles as the
+// forward's (C . B^T and gy . x^T, and their transposes for rows j,
+// recomputed rather than stored); fp32 inputs are split into bf16 hi and
+// lo tiles on load, and every fp32 operand (the decayed scores, x or gy
+// times a decay, the entering states, G) is split as in the forward, lo x
+// lo products left out: each such operand keeps about 16 significant bits
+// (a residual of at most 2^-16 of it).  For bf16 inputs (x, B, C and gy
+// exact operands) that is far under the one rounding to bf16: the result
+// is the fp32 VJP rounded once.  fp32 inputs enter the products with 16
+// significant bits where fp32 has 24: their grads err by about 1e-5 of
+// max |grad| (the plain fp32 VJP's by about 1e-7), fp32 storage but not
+// the fp32 VJP.  L uses ex2.approx as the forward's does.  No
+// atomics: every sum has a fixed order (quad shuffles, one warp's scan),
+// so the same inputs give the same bits.  p is at most 64 (one tile).
+// What bounds it: latency.  At mamba2-130m's training shape (8, 4096, 24,
+// 64, 128) the function's least bytes (x, gy, a, B and C read, dx, da, dB
+// and dC written, B's and C's at their one group) are 342 MB, 0.102 ms at
+// 3.35 TB/s, and its products 168 GFLOP (6qn + 4qp + 10pn a token and
+// head), 0.169 ms at the bf16 peak, which bounds it; the passes also write
+// and read the workspace (b * h * c * (2 * p * n + 129) fp32, 406 MB
+// there), recompute the score tiles and the lo halves, and for a
+// head-broadcast view write dB and dC per head (386 MB more there, which
+// autograd reads back to sum).  Passes 3 and 4 take 206 and 255 registers a thread and
+// 133 KB of tiles at bf16 and n 128: one block an SM, whose loads and
+// dependent products run one after another.
+//
+// Interface: plain C, bound with ctypes.  The entry points set the device,
+// launch on the caller's stream, do not synchronise, allocate nothing
+// (workspaces come from the caller) and return cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -808,6 +860,749 @@ cudaError_t launch(const void* x, const float* a, const void* Bm, const void* Cm
   return cudaGetLastError();
 }
 
+// ============================================ bf16 and fp32: the backward
+// The vector-Jacobian product of the scan (header, "Backward"): four passes
+// on the tensor cores, every product over the operands' bf16 parts.
+
+// Operand parts of an input dtype: bf16 values are exact wgmma operands (one
+// part); fp32 values are split into a bf16 hi and lo tile (two parts).
+template <typename T> struct In;
+template <> struct In<bf16> { static constexpr int kParts = 1; };
+template <> struct In<float> { static constexpr int kParts = 2; };
+
+// Eight fp32 values of a row (zero past n_rows / n_cols), 16-byte loads
+// where vec.
+__device__ __forceinline__ void load8(const float* __restrict__ src, long long ss, int r, int col,
+                                      int n_rows, int n_cols, bool vec, float (&v)[8]) {
+  if (vec && r < n_rows && col + 8 <= n_cols) {
+    const float4 lo4 = *reinterpret_cast<const float4*>(src + r * ss + col);
+    const float4 hi4 = *reinterpret_cast<const float4*>(src + r * ss + col + 4);
+    v[0] = lo4.x, v[1] = lo4.y, v[2] = lo4.z, v[3] = lo4.w;
+    v[4] = hi4.x, v[5] = hi4.y, v[6] = hi4.z, v[7] = hi4.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      v[e] = (r < n_rows && col + e < n_cols) ? src[r * ss + col + e] : 0.f;
+  }
+}
+
+// Rows [0, R) x columns [0, W) of an input matrix (row r at src + r * ss)
+// into its swizzled parts, `part` bytes apart: bf16 rows as they are, fp32
+// rows split into hi and lo; zero past n_rows and n_cols.  The caller waits
+// with tiles_written and a barrier.
+template <int R, int W>
+__device__ __forceinline__ void load_in(uint32_t dst, int, const bf16* __restrict__ src,
+                                        long long ss, int n_rows, int n_cols) {
+  load_tile<R, W>(dst, src, ss, n_rows, n_cols, rows_aligned16(src, ss, 2));
+}
+template <int R, int W>
+__device__ __forceinline__ void load_in(uint32_t dst, int part, const float* __restrict__ src,
+                                        long long ss, int n_rows, int n_cols) {
+  constexpr int kUnits = W / 8;
+  const bool vec = rows_aligned16(src, ss, 4);
+  for (int u = threadIdx.x; u < R * kUnits; u += kThreads) {
+    const int r = u / kUnits, col = (u % kUnits) * 8;
+    float v[8];
+    load8(src, ss, r, col, n_rows, n_cols, vec, v);
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_pair(v[2 * e], v[2 * e + 1], hi[e], lo[e]);
+    const uint32_t off = swizzle_off(r, col, R);
+    st_shared_v4(dst + off, hi);
+    st_shared_v4(dst + part + off, lo);
+  }
+}
+
+// The fp32 value (r, col) of a tile of R rows stored in P parts `part` bytes
+// apart.
+template <int P>
+__device__ __forceinline__ float tile_at(const uint8_t* base, int part, int r, int col, int R) {
+  const uint32_t off = swizzle_off(r, col, R);
+  float v = __bfloat162float(*reinterpret_cast<const bf16*>(base + off));
+  if (P == 2) v += __bfloat162float(*reinterpret_cast<const bf16*>(base + part + off));
+  return v;
+}
+
+// acc += A . B over the operands' parts (PA, PB: 1 or 2, the lo tile `part`
+// bytes after the hi one), the lo x lo product left out: its size is at most
+// 2^-16 of the product's, below the splits' own residual.
+template <int PA, int PB, int kTA, int kTB>
+__device__ __forceinline__ void mma_ss(float (&acc)[32], uint32_t a, int a_part, uint32_t b,
+                                       int b_part) {
+  wgmma_ss<kTA, kTB>(acc, make_desc(a), make_desc(b), 1);
+  if (PB == 2) wgmma_ss<kTA, kTB>(acc, make_desc(a), make_desc(b + b_part), 1);
+  if (PA == 2) wgmma_ss<kTA, kTB>(acc, make_desc(a + a_part), make_desc(b), 1);
+}
+// acc += (hi + lo) . B: A in registers, B (MN-major) over its PB parts.
+template <int PB>
+__device__ __forceinline__ void mma_rs(float (&acc)[32], const uint32_t (&hi)[4],
+                                       const uint32_t (&lo)[4], uint32_t b, int b_part) {
+  wgmma_rs(acc, hi, make_desc(b));
+  wgmma_rs(acc, lo, make_desc(b));
+  if (PB == 2) wgmma_rs(acc, hi, make_desc(b + b_part));
+}
+// A 64 x 64 accumulator tile as the A operand of four 64 x 16 products,
+// each value split into hi and lo.
+__device__ __forceinline__ void split_tile(const float (&s)[32], uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_pair(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1], hi[kk][i], lo[kk][i]);
+}
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+// Sum over the four lanes that hold one accumulator row.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Shared memory of the sums pass: the V tile's parts (kChunk x NP each), U
+// times its weight as hi and lo tiles (kChunk x kPT each), then a_cum.
+template <typename T, int NP>
+struct SumsSmem {
+  static constexpr int kParts = In<T>::kParts;
+  static constexpr int kV = kChunk * NP * 2;
+  static constexpr int kU = kChunk * kPT * 2;
+  static constexpr int kBytes = kParts * kV + 2 * kU + kChunk * 4;
+};
+
+// Backward pass 1, grid (chunk, head, 2 x batch): for even z, the chunk's
+// own state S_c = (x * exp(a_cum[-1] - a_cum))^T . B, as chunk_state_kernel
+// computes it, and the chunk's decay exp(a_cum[-1]); for odd z, the state
+// gradient the chunk's outputs give, Gamma_c = (gy * exp(a_cum))^T . C.
+// Both (b, h, c, p, n) fp32.  Warpgroup w takes columns [64w, 64w + 64).
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads)
+scan_bwd_sums(const T* __restrict__ x, const T* __restrict__ gy, const float* __restrict__ a,
+              const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ ws_s,
+              float* __restrict__ ws_g, float* __restrict__ decay, int L, int H, int P, int N,
+              int n_chunks, Strides sx, Strides sg, Strides sa, Strides sb, Strides sc) {
+  using S = SumsSmem<T, NP>;
+  extern __shared__ __align__(1024) uint8_t smem_tc[];
+  const uint32_t Vs = smem_u32(smem_tc);
+  if (Vs & (kAtomBytes - 1)) __trap();  // the swizzled tiles need 1024-byte alignment
+  const uint32_t UH = Vs + S::kParts * S::kV, UL = UH + S::kU;
+  float* acum = reinterpret_cast<float*>(smem_tc + S::kParts * S::kV + 2 * S::kU);
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z >> 1;
+  const bool grad = blockIdx.z & 1;
+  const int t0 = c * kChunk, rows = min(kChunk, L - t0);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+
+  const Strides& sv = grad ? sc : sb;
+  load_in<kChunk, NP>(Vs, S::kV, (grad ? Cm : Bm) + sv.at(b, h) + t0 * sv.s, sv.s, rows, N);
+  const Strides& su = grad ? sg : sx;
+  const T* u = (grad ? gy : x) + b * su.b + h * su.h + t0 * su.s;
+  const bool uvec = rows_aligned16(u, su.s, sizeof(T));
+  constexpr int kUnits = kChunk * kPT / 8 / kThreads;  // 8 values of a row each
+  float v[kUnits][8];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int unit = threadIdx.x + k * kThreads;
+    load8(u, su.s, unit / (kPT / 8), (unit % (kPT / 8)) * 8, rows, P, uvec, v[k]);
+  }
+  if (warp == 0) chunk_cumsum(a + b * sa.b + h * sa.h + t0 * sa.s, sa.s, rows, acum, lane);
+  __syncthreads();
+
+  const float last = acum[kChunk - 1];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int unit = threadIdx.x + k * kThreads;
+    const int r = unit / (kPT / 8), col = (unit % (kPT / 8)) * 8;
+    const float w = grad ? expf(acum[r]) : expf(last - acum[r]);
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_pair(v[k][2 * e] * w, v[k][2 * e + 1] * w, hi[e], lo[e]);
+    st_shared_v4(UH + swizzle_off(r, col, kChunk), hi);
+    st_shared_v4(UL + swizzle_off(r, col, kChunk), lo);
+  }
+  tiles_written();
+  __syncthreads();
+
+  const int wg = warp >> 2;
+  if (wg < NP / 64) {
+    float acc[32];
+    zero(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)  // 16 positions: two 8-row atoms
+      mma_ss<2, S::kParts, 1, 1>(acc, UH + kk * 2 * kAtomBytes, S::kU,
+                                 Vs + wg * (kChunk * kRowBytes) + kk * 2 * kAtomBytes, S::kV);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    float* out = (grad ? ws_g : ws_s) + (((long long)b * H + h) * n_chunks + c) * ((long long)P * N);
+    const int row0 = 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {  // values j, j + 1: columns n, n + 1 of row p
+      const int p = row0 + 8 * ((j >> 1) & 1);
+      const int n = 64 * wg + 8 * (j >> 2) + 2 * (lane & 3);
+      if (p >= P || n >= N) continue;
+      float* dst = out + (long long)p * N + n;
+      if (n + 1 < N && (N & 1) == 0) {
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[j], acc[j + 1]);
+      } else {
+        dst[0] = acc[j];
+        if (n + 1 < N) dst[1] = acc[j + 1];
+      }
+    }
+  }
+  if (!grad && threadIdx.x == 0) decay[((long long)b * H + h) * n_chunks + c] = expf(last);
+}
+
+// Backward pass 2, one thread per (batch, head, p*n element): the forward's
+// state pass (entering[c] = s; s = decay[c] * s + S_c, entering overwriting
+// S_c), then the reverse one from the final state's cotangent (zero when
+// gstate is null): G[c] = g; g = decay[c] * g + Gamma_c, G (the cotangent
+// of the state chunk c hands on) overwriting Gamma_c.  One rounding per
+// operation, in the plain version's (and its autograd's) order.
+__global__ void __launch_bounds__(kPassThreads)
+scan_bwd_pass(float* __restrict__ ws_s, float* __restrict__ ws_g, const float* __restrict__ decay,
+              const float* __restrict__ gstate, int n_chunks, long long PN, int blocks_per_head) {
+  const long long bh = blockIdx.x / blocks_per_head;
+  const long long e = (long long)(blockIdx.x % blocks_per_head) * kPassThreads + threadIdx.x;
+  if (e >= PN) return;
+  float* w = ws_s + bh * n_chunks * PN + e;
+  float* gw = ws_g + bh * n_chunks * PN + e;
+  const float* d = decay + bh * n_chunks;
+  constexpr int kU = 8;  // loads in flight a thread
+  float s = 0.f;
+  for (int c0 = 0; c0 < n_chunks; c0 += kU) {
+    float v[kU];
+#pragma unroll
+    for (int k = 0; k < kU; ++k)
+      if (c0 + k < n_chunks) v[k] = w[(c0 + k) * PN];
+#pragma unroll
+    for (int k = 0; k < kU; ++k)
+      if (c0 + k < n_chunks) {
+        w[(c0 + k) * PN] = s;
+        s = __fadd_rn(__fmul_rn(s, d[c0 + k]), v[k]);
+      }
+  }
+  float g = gstate != nullptr ? gstate[bh * PN + e] : 0.f;
+  for (int c0 = n_chunks - 1; c0 >= 0; c0 -= kU) {
+    float v[kU];
+#pragma unroll
+    for (int k = 0; k < kU; ++k)
+      if (c0 - k >= 0) v[k] = gw[(c0 - k) * PN];
+#pragma unroll
+    for (int k = 0; k < kU; ++k)
+      if (c0 - k >= 0) {
+        gw[(c0 - k) * PN] = g;
+        g = __fadd_rn(__fmul_rn(g, d[c0 - k]), v[k]);
+      }
+  }
+}
+
+// Row pitch (elements) of a staged tile of `cols` columns of T: 16 bytes
+// of padding, so that the eight rows a warp writes at once fall on
+// different banks and every row stays 16-byte aligned.
+template <typename T>
+__host__ __device__ constexpr int stage_pitch(int cols) {
+  return cols + 16 / (int)sizeof(T);
+}
+
+// Shared memory of backward passes 3 and 4: the C and B tiles' parts
+// (kChunk x NP each), the x and gy tiles' parts (kChunk x kPT each), a state
+// (kPT x NP) as hi and lo tiles, then a_cum, two rows of kChunk floats and
+// 32 for reductions: 133,120 bytes at bf16 and NP 128, 231,040 at fp32.
+template <typename T, int NP>
+struct ChunkSmem {
+  static constexpr int kParts = In<T>::kParts;
+  static constexpr int kCB = kChunk * NP * 2;
+  static constexpr int kX = kChunk * kPT * 2;
+  static constexpr int kE = kPT * NP * 2;
+  static constexpr int kTiles = kParts * (2 * kCB + 2 * kX) + 2 * kE;
+  static constexpr int kBytes = kTiles + (3 * kChunk + 32) * 4;
+  // dB and dC are staged in C and B's space, dx in x and gy's
+  static_assert(kChunk * stage_pitch<T>(NP) * (int)sizeof(T) <= 2 * kParts * kCB &&
+                    kChunk * stage_pitch<T>(kPT) * (int)sizeof(T) <= 2 * kParts * kX,
+                "a staged tile outgrows the space it reuses");
+};
+
+// The (P, N) fp32 state at src into hi and lo tiles (kPT x NP, zero past P
+// and N); with `with` not null, dot += the sum of its products with the
+// same elements of `with`.
+template <int NP>
+__device__ __forceinline__ void load_state(uint32_t EH, uint32_t EL, const float* __restrict__ src,
+                                           const float* __restrict__ with, int P, int N,
+                                           float& dot) {
+  constexpr int kUnits = kPT * NP / 8 / kThreads;  // 8 values of a row each
+  const bool vec = (N & 3) == 0;
+  float v[kUnits][8];
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int u = threadIdx.x + k * kThreads;
+    load8(src, N, u / (NP / 8), (u % (NP / 8)) * 8, P, N, vec, v[k]);
+  }
+  if (with != nullptr) {
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const int u = threadIdx.x + k * kThreads;
+      float w[8];
+      load8(with, N, u / (NP / 8), (u % (NP / 8)) * 8, P, N, vec, w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dot = fmaf(v[k][e], w[e], dot);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kUnits; ++k) {
+    const int u = threadIdx.x + k * kThreads;
+    const int r = u / (NP / 8), col = (u % (NP / 8)) * 8;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_pair(v[k][2 * e], v[k][2 * e + 1], hi[e], lo[e]);
+    st_shared_v4(EH + swizzle_off(r, col, kPT), hi);
+    st_shared_v4(EL + swizzle_off(r, col, kPT), lo);
+  }
+}
+
+// This warpgroup's 64 rows of an accumulator tile, rounded to T, into
+// columns [col0, col0 + 64) of a row-major staging tile of kCols columns
+// in shared memory.
+template <typename T, int kCols>
+__device__ __forceinline__ void stage_tile(uint8_t* stage, const float (&acc)[32], int r0,
+                                           int col0) {
+  constexpr int kPitch = stage_pitch<T>(kCols);
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 32; j += 2) {
+    const int r = r0 + 8 * ((j >> 1) & 1), col = col0 + 8 * (j >> 2) + 2 * (lane & 3);
+    T* dst = reinterpret_cast<T*>(stage) + r * kPitch + col;
+    if constexpr (sizeof(T) == 2)
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(acc[j], acc[j + 1]);
+    else
+      *reinterpret_cast<float2*>(dst) = make_float2(acc[j], acc[j + 1]);
+  }
+}
+
+// Rows [0, n_rows) x columns [0, n_cols) of a staging tile of `cols`
+// columns to dst (row stride ld elements), by the whole block: 16-byte
+// stores where every row is 16-byte aligned, else element by element.
+// The caller makes the staged rows visible with a barrier first.
+template <typename T, int kCols>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, long long ld, const uint8_t* stage,
+                                           int n_rows, int n_cols) {
+  constexpr int kPitch = stage_pitch<T>(kCols), kVec = 16 / (int)sizeof(T);
+  const T* src = reinterpret_cast<const T*>(stage);
+  if (n_cols % kVec == 0 && ld % kVec == 0 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int per_row = n_cols / kVec;
+    for (int u = threadIdx.x; u < n_rows * per_row; u += kThreads) {
+      const int r = u / per_row, col = (u % per_row) * kVec;
+      *reinterpret_cast<uint4*>(dst + r * ld + col) =
+          *reinterpret_cast<const uint4*>(src + r * kPitch + col);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n_rows * n_cols; i += kThreads) {
+      const int r = i / n_cols, col = i % n_cols;
+      dst[r * ld + col] = src[r * kPitch + col];
+    }
+  }
+}
+
+// Backward pass 3, grid (chunk, group, batch), the group's heads one after
+// another: the rows i of dC and their a_cum cotangents.  Warpgroup w takes
+// rows [64w, 64w + 64).  For each head:
+//   dC_i += exp(a_cum_i) (gy_i . entering) + sum_j<=i (gy_i . x_j) L_ij B_j
+//   row_i = sum_j<i (gy_i . x_j)(C_i . B_j) L_ij + C_i . exp(a_cum_i)(gy_i . entering)
+// (the products gy . entering (K = p) and (gy . x^T) * L . B, the latter
+// split into hi and lo in registers); row goes to darow (b, h, c, kChunk),
+// dC, summed over the group's heads in fp32, is rounded once.
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+scan_bwd_dc(const T* __restrict__ x, const T* __restrict__ gy, const float* __restrict__ a,
+            const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ ws_s,
+            float* __restrict__ darow, T* __restrict__ dC, int L, int H, int P, int N,
+            int n_chunks, int r, Strides sx, Strides sg, Strides sa, Strides sb, Strides sc) {
+  using S = ChunkSmem<T, NP>;
+  constexpr int kParts = S::kParts;
+  extern __shared__ __align__(1024) uint8_t smem_tc[];
+  const uint32_t Cs = smem_u32(smem_tc);
+  if (Cs & (kAtomBytes - 1)) __trap();  // the swizzled tiles need 1024-byte alignment
+  const uint32_t Bs = Cs + kParts * S::kCB, Xs = Bs + kParts * S::kCB, Gs = Xs + kParts * S::kX,
+                 EH = Gs + kParts * S::kX, EL = EH + S::kE;
+  float* acum = reinterpret_cast<float*>(smem_tc + S::kTiles);
+
+  const int c = blockIdx.x, gi = blockIdx.y, b = blockIdx.z;
+  const int t0 = c * kChunk, rows = min(kChunk, L - t0);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int r0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // this thread's rows r0, r0 + 8
+
+  load_in<kChunk, NP>(Cs, S::kCB, Cm + sc.at(b, gi * r) + t0 * sc.s, sc.s, rows, N);
+  load_in<kChunk, NP>(Bs, S::kCB, Bm + sb.at(b, gi * r) + t0 * sb.s, sb.s, rows, N);
+  float dc[NP / 64][32];
+#pragma unroll
+  for (int nt = 0; nt < NP / 64; ++nt) zero(dc[nt]);
+
+  for (int k = 0; k < r; ++k) {
+    const int h = gi * r + k;
+    const long long bhc = ((long long)b * H + h) * n_chunks + c;
+    __syncthreads();  // the last head's tiles are read
+    load_in<kChunk, kPT>(Xs, S::kX, x + b * sx.b + h * sx.h + t0 * sx.s, sx.s, rows, P);
+    load_in<kChunk, kPT>(Gs, S::kX, gy + b * sg.b + h * sg.h + t0 * sg.s, sg.s, rows, P);
+    float unused = 0.f;
+    load_state<NP>(EH, EL, ws_s + bhc * P * N, nullptr, P, N, unused);
+    if (warp == 0) chunk_cumsum(a + b * sa.b + h * sa.h + t0 * sa.s, sa.s, rows, acum, lane);
+    tiles_written();
+    __syncthreads();
+
+    const float ai[2] = {acum[r0], acum[r0 + 8]};
+    const float ea[2] = {expf(ai[0]), expf(ai[1])};
+    float row[2] = {0.f, 0.f};
+    // exp(a_cum_i) (gy_i . entering), an n tile at a time (K = p)
+#pragma unroll
+    for (int nt = 0; nt < NP / 64; ++nt) {
+      float t[32];
+      zero(t);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kPT / 16; ++kk)
+        mma_ss<kParts, 2, 0, 1>(t, Gs + wg * 64 * kRowBytes + kk * 32, S::kX,
+                                EH + nt * (kPT * kRowBytes) + kk * 2 * kAtomBytes, S::kE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(t);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int rl = (j >> 1) & 1, col = 64 * nt + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const float v = t[j] * ea[rl];
+        row[rl] = fmaf(v, tile_at<kParts>(smem_tc, S::kCB, r0 + 8 * rl, col, kChunk), row[rl]);
+        dc[nt][j] += v;
+      }
+    }
+    // the score tiles left of and on the diagonal
+    for (int jt = 0; jt <= wg; ++jt) {
+      float s[32], m[32];
+      zero(s);
+      zero(m);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NP / 16; ++kk) {  // s = C . B^T (K = n)
+        const uint32_t k_off = (kk >> 2) * (kChunk * kRowBytes) + (kk & 3) * 32;
+        mma_ss<kParts, kParts, 0, 0>(s, Cs + wg * 64 * kRowBytes + k_off, S::kCB,
+                                     Bs + jt * 64 * kRowBytes + k_off, S::kCB);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kPT / 16; ++kk)  // m = gy . x^T (K = p)
+        mma_ss<kParts, kParts, 0, 0>(m, Gs + wg * 64 * kRowBytes + kk * 32, S::kX,
+                                     Xs + jt * 64 * kRowBytes + kk * 32, S::kX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(m);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int rl = (j >> 1) & 1, i = r0 + 8 * rl;
+        const int col = 64 * jt + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const float ml = col <= i ? m[j] * ex2_approx((ai[rl] - acum[col]) * kLog2e) : 0.f;
+        if (col < i) row[rl] = fmaf(ml, s[j], row[rl]);
+        m[j] = ml;
+      }
+      uint32_t ph[4][4], pl[4][4];
+      split_tile(m, ph, pl);
+      wgmma_fence();
+#pragma unroll
+      for (int nt = 0; nt < NP / 64; ++nt)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // (m * L) . B, score columns 16kk..: B rows
+          mma_rs<kParts>(dc[nt], ph[kk], pl[kk],
+                         Bs + nt * (kChunk * kRowBytes) + jt * 8 * kAtomBytes + kk * 2 * kAtomBytes,
+                         S::kCB);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int nt = 0; nt < NP / 64; ++nt) fence_regs(dc[nt]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(ph[kk]);
+        fence_regs(pl[kk]);
+      }
+    }
+    const float row0 = quad_sum(row[0]), row1 = quad_sum(row[1]);
+    if ((lane & 3) == 0) {
+      darow[bhc * kChunk + r0] = row0;
+      darow[bhc * kChunk + r0 + 8] = row1;
+    }
+  }
+  const int G = H / r;
+  __syncthreads();  // every tile is read: C and B's space takes the staged dC
+#pragma unroll
+  for (int nt = 0; nt < NP / 64; ++nt) stage_tile<T, NP>(smem_tc, dc[nt], r0, 64 * nt);
+  __syncthreads();
+  store_rows<T, NP>(dC + (((long long)b * L + t0) * G + gi) * N, (long long)G * N, smem_tc, rows,
+                    N);
+}
+
+// Backward pass 4, grid (chunk, group, batch), the group's heads one after
+// another: the rows j of dx and dB, and da.  Warpgroup w takes rows [64w,
+// 64w + 64); with d_j = exp(a_cum[-1] - a_cum_j) and G the cotangent of the
+// state the chunk hands on, for each head:
+//   dx_j = d_j (B_j . G^T) + sum_i>=j (C_i . B_j) L_ij gy_i
+//   dB_j += d_j (x_j . G) + sum_i>=j (gy_i . x_j) L_ij C_i
+//   col_j = sum_i>j (gy_i . x_j)(C_i . B_j) L_ij + x_j . d_j (B_j . G^T)
+// then the a_cum cotangent row_j - col_j (row_j from pass 3), plus at the
+// chunk's last position sum_j x_j . d_j (B_j . G^T) + exp(a_cum[-1])
+// <G, entering>, and da its reverse cumulative sum over the chunk.  dx is
+// rounded once a head, dB once after the group's heads.
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads, 1)
+scan_bwd_dxdb(const T* __restrict__ x, const T* __restrict__ gy, const float* __restrict__ a,
+              const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ ws_s,
+              const float* __restrict__ ws_g, const float* __restrict__ darow, T* __restrict__ dx,
+              float* __restrict__ da, T* __restrict__ dB, int L, int H, int P, int N, int n_chunks,
+              int r, Strides sx, Strides sg, Strides sa, Strides sb, Strides sc) {
+  using S = ChunkSmem<T, NP>;
+  constexpr int kParts = S::kParts;
+  extern __shared__ __align__(1024) uint8_t smem_tc[];
+  const uint32_t Cs = smem_u32(smem_tc);
+  if (Cs & (kAtomBytes - 1)) __trap();  // the swizzled tiles need 1024-byte alignment
+  const uint32_t Bs = Cs + kParts * S::kCB, Xs = Bs + kParts * S::kCB, Gs = Xs + kParts * S::kX,
+                 EH = Gs + kParts * S::kX, EL = EH + S::kE;
+  float* acum = reinterpret_cast<float*>(smem_tc + S::kTiles);
+  float* dacc = acum + kChunk;  // the a_cum cotangents
+  float* fbuf = dacc + kChunk;  // x_j . d_j (B_j . G^T)
+  float* red = fbuf + kChunk;   // a warp's share of <G, entering>
+  const uint8_t* Xp = smem_tc + 2 * kParts * S::kCB;
+
+  const int c = blockIdx.x, gi = blockIdx.y, b = blockIdx.z;
+  const int t0 = c * kChunk, rows = min(kChunk, L - t0);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const int r0 = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // this thread's rows r0, r0 + 8
+
+  load_in<kChunk, NP>(Cs, S::kCB, Cm + sc.at(b, gi * r) + t0 * sc.s, sc.s, rows, N);
+  load_in<kChunk, NP>(Bs, S::kCB, Bm + sb.at(b, gi * r) + t0 * sb.s, sb.s, rows, N);
+  float db[NP / 64][32];
+#pragma unroll
+  for (int nt = 0; nt < NP / 64; ++nt) zero(db[nt]);
+
+  for (int k = 0; k < r; ++k) {
+    const int h = gi * r + k;
+    const long long bhc = ((long long)b * H + h) * n_chunks + c;
+    __syncthreads();  // the last head's tiles and rows are read
+    load_in<kChunk, kPT>(Xs, S::kX, x + b * sx.b + h * sx.h + t0 * sx.s, sx.s, rows, P);
+    load_in<kChunk, kPT>(Gs, S::kX, gy + b * sg.b + h * sg.h + t0 * sg.s, sg.s, rows, P);
+    float dot = 0.f;
+    load_state<NP>(EH, EL, ws_g + bhc * P * N, ws_s + bhc * P * N, P, N, dot);
+    if (warp == 0) chunk_cumsum(a + b * sa.b + h * sa.h + t0 * sa.s, sa.s, rows, acum, lane);
+    tiles_written();
+    __syncthreads();
+
+    const float aj[2] = {acum[r0], acum[r0 + 8]};
+    const float last = acum[kChunk - 1];
+    const float dj[2] = {expf(last - aj[0]), expf(last - aj[1])};
+    float f[2] = {0.f, 0.f}, col[2] = {0.f, 0.f};
+    float dxa[32];
+    zero(dxa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NP / 16; ++kk) {  // B . G^T (K = n)
+      mma_ss<kParts, 2, 0, 0>(
+          dxa, Bs + wg * 64 * kRowBytes + (kk >> 2) * (kChunk * kRowBytes) + (kk & 3) * 32, S::kCB,
+          EH + (kk >> 2) * (kPT * kRowBytes) + (kk & 3) * 32, S::kE);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dxa);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int rl = (j >> 1) & 1, p = 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+      dxa[j] *= dj[rl];
+      f[rl] = fmaf(dxa[j], tile_at<kParts>(Xp, S::kX, r0 + 8 * rl, p, kChunk), f[rl]);
+    }
+    // d_j (x_j . G), an n tile at a time (K = p)
+#pragma unroll
+    for (int nt = 0; nt < NP / 64; ++nt) {
+      float t[32];
+      zero(t);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kPT / 16; ++kk)
+        mma_ss<kParts, 2, 0, 1>(t, Xs + wg * 64 * kRowBytes + kk * 32, S::kX,
+                                EH + nt * (kPT * kRowBytes) + kk * 2 * kAtomBytes, S::kE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(t);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) db[nt][j] = fmaf(t[j], dj[(j >> 1) & 1], db[nt][j]);
+    }
+    // the score tiles on and right of the diagonal (transposed: rows j)
+    for (int it = wg; it < kChunk / 64; ++it) {
+      float s[32], m[32];
+      zero(s);
+      zero(m);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NP / 16; ++kk) {  // s = B . C^T (K = n)
+        const uint32_t k_off = (kk >> 2) * (kChunk * kRowBytes) + (kk & 3) * 32;
+        mma_ss<kParts, kParts, 0, 0>(s, Bs + wg * 64 * kRowBytes + k_off, S::kCB,
+                                     Cs + it * 64 * kRowBytes + k_off, S::kCB);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kPT / 16; ++kk)  // m = x . gy^T (K = p)
+        mma_ss<kParts, kParts, 0, 0>(m, Xs + wg * 64 * kRowBytes + kk * 32, S::kX,
+                                     Gs + it * 64 * kRowBytes + kk * 32, S::kX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(m);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int rl = (j >> 1) & 1, jr = r0 + 8 * rl;
+        const int i = 64 * it + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const float l = i >= jr ? ex2_approx((acum[i] - aj[rl]) * kLog2e) : 0.f;
+        const float ml = m[j] * l;
+        if (i > jr) col[rl] = fmaf(ml, s[j], col[rl]);
+        s[j] *= l;
+        m[j] = ml;
+      }
+      uint32_t ph[4][4], pl[4][4], qh[4][4], ql[4][4];
+      split_tile(s, ph, pl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // dx += (s * L) . gy (gy rows i)
+        mma_rs<kParts>(dxa, ph[kk], pl[kk], Gs + it * 8 * kAtomBytes + kk * 2 * kAtomBytes, S::kX);
+      split_tile(m, qh, ql);
+      wgmma_fence();
+#pragma unroll
+      for (int nt = 0; nt < NP / 64; ++nt)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // dB += (m * L) . C (C rows i)
+          mma_rs<kParts>(db[nt], qh[kk], ql[kk],
+                         Cs + nt * (kChunk * kRowBytes) + it * 8 * kAtomBytes + kk * 2 * kAtomBytes,
+                         S::kCB);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dxa);
+#pragma unroll
+      for (int nt = 0; nt < NP / 64; ++nt) fence_regs(db[nt]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(ph[kk]);
+        fence_regs(pl[kk]);
+        fence_regs(qh[kk]);
+        fence_regs(ql[kk]);
+      }
+    }
+    const float f0 = quad_sum(f[0]), f1 = quad_sum(f[1]);
+    const float col0 = quad_sum(col[0]), col1 = quad_sum(col[1]);
+    if ((lane & 3) == 0) {
+      dacc[r0] = darow[bhc * kChunk + r0] - col0 - f0;
+      dacc[r0 + 8] = darow[bhc * kChunk + r0 + 8] - col1 - f1;
+      fbuf[r0] = f0;
+      fbuf[r0 + 8] = f1;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (lane == 0) red[warp] = dot;
+    __syncthreads();  // every tile of this head is read: x and gy's space takes the staged dx
+    stage_tile<T, kPT>(smem_tc + 2 * kParts * S::kCB, dxa, r0, 0);
+    __syncthreads();
+    store_rows<T, kPT>(dx + (((long long)b * L + t0) * H + h) * P, (long long)H * P,
+                       smem_tc + 2 * kParts * S::kCB, rows, P);
+    if (warp == 0) {
+      // the chunk's last position: sum_j f_j + exp(a_cum[-1]) <G, entering>
+      float fs = fbuf[4 * lane] + fbuf[4 * lane + 1] + fbuf[4 * lane + 2] + fbuf[4 * lane + 3];
+      float ds = lane < kThreads / 32 ? red[lane] : 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        fs += __shfl_xor_sync(0xffffffffu, fs, off);
+        ds += __shfl_xor_sync(0xffffffffu, ds, off);
+      }
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = dacc[4 * lane + q];
+      if (lane == 31) v[3] += fs + expf(last) * ds;
+      // reverse cumulative sum: within the lane, then across lanes
+#pragma unroll
+      for (int q = 2; q >= 0; --q) v[q] += v[q + 1];
+      float incl = v[0];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float down = __shfl_down_sync(0xffffffffu, incl, off);
+        if (lane + off < 32) incl += down;
+      }
+      float after = __shfl_down_sync(0xffffffffu, incl, 1);
+      if (lane == 31) after = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int t = 4 * lane + q;
+        if (t < rows) da[((long long)b * L + t0 + t) * H + h] = v[q] + after;
+      }
+    }
+  }
+  const int G = H / r;
+  __syncthreads();  // every tile is read: C and B's space takes the staged dB
+#pragma unroll
+  for (int nt = 0; nt < NP / 64; ++nt) stage_tile<T, NP>(smem_tc, db[nt], r0, 64 * nt);
+  __syncthreads();
+  store_rows<T, NP>(dB + (((long long)b * L + t0) * G + gi) * N, (long long)G * N, smem_tc, rows,
+                    N);
+}
+
+template <typename T, int NP>
+cudaError_t launch_backward(const T* x, const T* gy, const float* a, const T* Bm, const T* Cm,
+                            const float* gstate, float* work, T* dx, float* da, T* dB, T* dC,
+                            int Bsz, int L, int H, int P, int N, int r, Strides sx, Strides sg,
+                            Strides sa, Strides sb, Strides sc, cudaStream_t stream) {
+  const int n_chunks = (L + kChunk - 1) / kChunk;
+  const long long PN = (long long)P * N, heads = (long long)Bsz * H * n_chunks;
+  float* ws_s = work;
+  float* ws_g = ws_s + heads * PN;
+  float* decay = ws_g + heads * PN;
+  float* darow = decay + heads;
+  using SS = SumsSmem<T, NP>;
+  using CS = ChunkSmem<T, NP>;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(scan_bwd_sums<T, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  SS::kBytes)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(scan_bwd_dc<T, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  CS::kBytes)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(scan_bwd_dxdb<T, NP>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, CS::kBytes)) !=
+          cudaSuccess)
+    return err;
+  scan_bwd_sums<T, NP><<<dim3(n_chunks, H, 2 * Bsz), kThreads, SS::kBytes, stream>>>(
+      x, gy, a, Bm, Cm, ws_s, ws_g, decay, L, H, P, N, n_chunks, sx, sg, sa, sb, sc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int per_head = (int)((PN + kPassThreads - 1) / kPassThreads);
+  scan_bwd_pass<<<per_head * Bsz * H, kPassThreads, 0, stream>>>(ws_s, ws_g, decay, gstate,
+                                                                 n_chunks, PN, per_head);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 grid(n_chunks, H / r, Bsz);
+  scan_bwd_dc<T, NP><<<grid, kThreads, CS::kBytes, stream>>>(x, gy, a, Bm, Cm, ws_s, darow, dC, L,
+                                                             H, P, N, n_chunks, r, sx, sg, sa, sb,
+                                                             sc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  scan_bwd_dxdb<T, NP><<<grid, kThreads, CS::kBytes, stream>>>(x, gy, a, Bm, Cm, ws_s, ws_g, darow,
+                                                               dx, da, dB, L, H, P, N, n_chunks,
+                                                               r, sx, sg, sa, sb, sc);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t backward(const void* x, const void* gy, const float* a, const void* Bm, const void* Cm,
+                     const float* gstate, float* work, void* dx, float* da, void* dB, void* dC,
+                     int Bsz, int L, int H, int P, int N, int r, Strides sx, Strides sg,
+                     Strides sa, Strides sb, Strides sc, cudaStream_t stream) {
+  const auto t = [](const void* p) { return static_cast<const T*>(p); };
+  const auto o = [](void* p) { return static_cast<T*>(p); };
+  return N <= 64 ? launch_backward<T, 64>(t(x), t(gy), a, t(Bm), t(Cm), gstate, work, o(dx), da,
+                                          o(dB), o(dC), Bsz, L, H, P, N, r, sx, sg, sa, sb, sc,
+                                          stream)
+                 : launch_backward<T, 128>(t(x), t(gy), a, t(Bm), t(Cm), gstate, work, o(dx), da,
+                                           o(dB), o(dC), Bsz, L, H, P, N, r, sx, sg, sa, sb, sc,
+                                           stream);
+}
+
+
 }  // namespace tc
 
 }  // namespace
@@ -855,6 +1650,45 @@ int ssd_scan_launch(const void* x, const void* a, const void* Bm, const void* Cm
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)err;
+}
+
+
+// The vector-Jacobian product of the scan above (same shapes, strides and
+// dtype codes) for the cotangent gy (b, l, h, p) of y, in x's dtype with
+// its own strides, and gstate, the fp32 (b, h, p, n) contiguous cotangent
+// of the final state (null: zero).  Writes dx (b, l, h, p) and dB, dC (b,
+// l, h / heads_per_group, n) contiguous in x's dtype, dB and dC summed over
+// each group's heads, and da (b, l, h) fp32 contiguous.  p must be at most
+// 64.  work holds b * h * c * (2 * p * n + 1 + ssd_scan_chunk()) fp32
+// values, c = ceil(l / ssd_scan_chunk()).
+int ssd_scan_backward(const void* x, const void* gy, const void* a, const void* Bm, const void* Cm,
+                      const void* gstate, void* work, void* dx, void* da, void* dB, void* dC,
+                      int Bsz, int L, int H, int P, int N, long long x_sb, long long x_ss,
+                      long long x_sh, long long g_sb, long long g_ss, long long g_sh,
+                      long long a_sb, long long a_ss, long long a_sh, long long b_sb,
+                      long long b_ss, long long b_sh, long long c_sb, long long c_ss,
+                      long long c_sh, int heads_per_group, int dtype, int device, void* stream) {
+  if (Bsz < 1 || L < 1 || H < 1 || P < 1 || N < 1 || N > kMaxState || P > tc::kPT ||
+      H > 65535 || Bsz > 32767 || heads_per_group < 1 || H % heads_per_group || work == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Strides sx{x_sb, x_ss, x_sh}, sg{g_sb, g_ss, g_sh}, sa{a_sb, a_ss, a_sh},
+      sb{b_sb, b_ss, b_sh, heads_per_group}, sc{c_sb, c_ss, c_sh, heads_per_group};
+  const float* af = static_cast<const float*>(a);
+  const float* gs = static_cast<const float*>(gstate);
+  float* wf = static_cast<float*>(work);
+  float* daf = static_cast<float*>(da);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    err = tc::backward<float>(x, gy, af, Bm, Cm, gs, wf, dx, daf, dB, dC, Bsz, L, H, P, N,
+                              heads_per_group, sx, sg, sa, sb, sc, s);
+  else if (dtype == kBF16)
+    err = tc::backward<tc::bf16>(x, gy, af, Bm, Cm, gs, wf, dx, daf, dB, dC, Bsz, L, H, P, N,
+                                 heads_per_group, sx, sg, sa, sb, sc, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)err;
 }
 

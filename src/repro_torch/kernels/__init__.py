@@ -12,7 +12,8 @@
   flash_attention — causal / sliding-window / soft-capped GQA attention
                    with an online softmax (models/attention.py)
   ssd_scan       — Mamba2 SSD chunked scan with the state carried inside
-                   the block, and the final state (models/ssm.py)
+                   the block, and the final state (models/ssm.py); its
+                   backward in kernels too
   adam           — the local Adam / AdamW step (FedProx term, moments,
                    bias-corrected step, weight decay, apply) over a tree's
                    leaves in one pass (optim/optimizers.py)
@@ -33,9 +34,11 @@ KERNELS = (fed_agg, fed_agg_apply, fed_agg_sharded, fed_agg_apply_sharded,
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0 (``ssd_scan``'s
+    ``backward_launches`` too)."""
     for wrapper in KERNELS:
         wrapper.launches = 0
+    ssd_scan.backward_launches = 0
 
 
 __all__ = ["APPLY_OPTS", "COMPRESS_SCHEMES", "KERNELS", "adam", "adam_plain",

@@ -18,7 +18,8 @@ to its last grid step), which prefill keeps as the decode cache.
 ``ssd_scan`` checks its inputs, then runs the plain PyTorch version beside
 it on a CPU tensor or launches the hand-written CUDA kernels
 (``csrc/ssd_scan.cu``) on a CUDA tensor; any other device raises.  It
-counts its calls that launch in its ``launches`` attribute, one a call.
+counts its forward calls that launch in its ``launches`` attribute, one a
+call (the backward's go to ``backward_launches``).
 The kernels are chosen by dtype: bf16 inputs (the serve runs' activations)
 run the chunk-parallel SSD on the tensor cores in chunks of ``TILE`` = 128
 positions (chunk states, the state pass, chunk outputs; every fp32
@@ -36,15 +37,30 @@ C that models/ssm.py passes for one group (head stride 0) are read in
 place, and so are grouped (b, l, g, n) tensors: no per-head copy either
 way.  The plain version computes C·Bᵀ once a group.
 
-The kernels have no backward, as the Pallas kernel has none.  Under
-autograd ``ssd_scan`` runs as ``_SSDScan``: the kernels compute the
-forward, and the backward recomputes the plain version in fp32 from the
-saved inputs and returns its vector-Jacobian product (what ``jax.grad``
-of the JAX package's ``ssd_chunked`` computes); grouped B and C get
-(b, l, g, n) gradients, summed over each group's heads.  So the kernel runs the
-forward of training, and the plain version its backward.  Under
-``torch.func.vmap`` (the vectorized executor) ``_SSDScan``'s vmap rule
-folds the vmapped dim into the batch, so a call still launches once.
+Under autograd ``ssd_scan`` runs as ``_SSDScan``: the kernels compute
+the forward, and on a CUDA tensor hand-written backward kernels
+(``ssd_scan_backward`` in the same file; the Pallas kernel has none, and
+the JAX package differentiates its chunked oracle ``ssd_chunked`` with
+``jax.grad``) compute the vector-Jacobian product from the saved inputs
+in four chunk-parallel passes on the tensor cores, bf16 and fp32 inputs
+alike, one launch a backward (counted in ``backward_launches``), the same
+bits on the same inputs, p at most ``BACKWARD_MAX_P`` (a larger p raises
+ValueError).  Every fp32 operand of a product is split into a bf16 hi and
+lo pair as in the forward, lo × lo left out, which keeps about 16
+significant bits of it (a residual of at most 2^-16 of it).  bf16 inputs
+are exact operands, so their grads are the fp32 VJP to far less than the
+one rounding to bf16 at the end.  fp32 inputs are split on load as well:
+x, B, C and gy enter the products with 16 significant bits where fp32 has
+24, and their grads err by about 1e-5 of max |grad| (the plain fp32 VJP's
+by about 1e-7), within ``SSD_FP32_TOL``'s 1e-4 of the tests, not the fp32
+VJP itself.  On a CPU tensor the backward recomputes the plain version in
+fp32 and returns its vector-Jacobian product (``torch.func.vjp``).
+Grouped B and C get (b, l, g, n) gradients, summed over each group's
+heads in fp32 inside the kernels; a head-broadcast view's come back per
+head and autograd sums them through the view.  Under ``torch.func.vmap``
+(the vectorized executor) the vmap rules of ``_SSDScan`` and
+``_SSDScanBackward`` fold the vmapped dim into the batch, so a call
+still launches once each way.
 
 In the sharded train step (launch/sharded.py) the scan's inputs are
 DTensors.  ``ssd_scan_sharded`` runs the scan as a ``local_map`` region:
@@ -70,6 +86,7 @@ from . import build
 NEG = -1e30                  # the mask value of the reference kernel
 MAX_STATE = 128              # the largest n the kernels take
 TILE = 128                   # positions of a chunk of the bf16 kernel
+BACKWARD_MAX_P = 64          # the largest p the backward kernels take
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -79,6 +96,8 @@ _SIGNATURES = {
                         _int, _int, _int, *([_ll] * 12), _int, _int, _int,
                         _vp],
     "ssd_scan_chunk": [],
+    "ssd_scan_backward": [*([_vp] * 11), *([_int] * 5), *([_ll] * 15), _int,
+                          _int, _int, _vp],
 }
 
 
@@ -98,6 +117,14 @@ def workspace_floats(b: int, l: int, h: int, p: int, n: int) -> int:
     """fp32 values of the bf16 kernel's workspace: each chunk's state
     contribution (b, h, c, p, n), then each chunk's decay (b, h, c)."""
     return b * h * -(-l // TILE) * (p * n + 1)
+
+
+def backward_workspace_floats(b: int, l: int, h: int, p: int, n: int) -> int:
+    """fp32 values of the backward kernels' workspace: the state entering
+    each chunk and the cotangent of the state it hands on (b, h, c, p, n)
+    each, each chunk's decay (b, h, c), and the a_cum cotangents' row
+    terms (b, h, c, TILE)."""
+    return b * h * -(-l // TILE) * (2 * p * n + 1 + TILE)
 
 
 def _check(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
@@ -224,6 +251,48 @@ def _scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
     return (y, state) if return_state else y
 
 
+def _kernel_backward(x: torch.Tensor) -> bool:
+    """The backward runs in the kernels: x on the card (the plain VJP
+    on the CPU)."""
+    return x.device.type == "cuda"
+
+
+def _scan_backward(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
+                   C: torch.Tensor, gy: torch.Tensor,
+                   gstate: Optional[torch.Tensor]):
+    """The backward kernels without a graph: (dx, da_dt, dB, dC) of the
+    scan at the inputs for the cotangents gy of y and gstate of the final
+    state (None: zero), in the inputs' dtypes and shapes (counted in
+    ``ssd_scan.backward_launches``)."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if p > BACKWARD_MAX_P:
+        raise ValueError(f"the backward kernels take head dims up to "
+                         f"{BACKWARD_MAX_P}, got {p}")
+    if gy.dtype != x.dtype or gy.stride(-1) != 1:
+        gy = gy.to(x.dtype).contiguous()
+    if gstate is not None:
+        gstate = gstate.float().contiguous()
+    a = a_dt.float()
+    lib = _library()
+    dx = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
+    da = torch.empty((b, l, h), dtype=torch.float32, device=x.device)
+    dB, dC = (torch.empty((b, l, g, n), dtype=x.dtype, device=x.device)
+              for _ in range(2))
+    work = torch.empty(backward_workspace_floats(b, l, h, p, n),
+                       dtype=torch.float32, device=x.device)
+    strides = [st for t in (x, gy, a, B, C) for st in t.stride()[:3]]
+    code = lib.ssd_scan_backward(
+        x.data_ptr(), gy.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
+        gstate.data_ptr() if gstate is not None else None, work.data_ptr(),
+        dx.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(), b, l, h,
+        p, n, *strides, h // g, _DTYPE_CODES[x.dtype], x.device.index or 0,
+        build.stream(x))
+    build.check_status(lib, "ssd_scan", code, "ssd_scan backward")
+    ssd_scan.backward_launches += 1
+    return dx, da.to(a_dt.dtype), dB, dC
+
+
 def _fold(t: torch.Tensor, bdim: Optional[int], size: int) -> torch.Tensor:
     """``t`` with its vmapped dim ``bdim`` (None: not vmapped, so ``t`` is
     expanded to ``size`` copies) folded into its batch dim: (size·b, ...).
@@ -244,16 +313,53 @@ def _fold(t: torch.Tensor, bdim: Optional[int], size: int) -> torch.Tensor:
     return base.expand(shape)
 
 
+class _SSDScanBackward(torch.autograd.Function):
+    """The backward kernels as a Function, so that under ``torch.func.vmap``
+    (the vectorized executor's ``vmap(grad_and_value(...))`` hands
+    ``_SSDScan.backward`` batched tensors) its ``vmap`` rule folds the
+    vmapped dim into the batch, as ``_SSDScan``'s does: one launch a call,
+    and ``data_ptr()`` never sees a wrapper.  It has no backward itself,
+    so on the card the scan is differentiable once: a second derivative
+    (``create_graph``, ``torch.func.grad`` of a grad) raises there, where
+    the CPU's plain VJP takes one."""
+
+    @staticmethod
+    def forward(x, a_dt, B, C, gy, gstate):
+        return _scan_backward(x, a_dt, B, C, gy, gstate)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("ssd_scan is differentiable once on the card: "
+                           "its backward kernels have no backward (the "
+                           "plain VJP on the CPU has one)")
+
+    @staticmethod
+    def vmap(info, in_dims, x, a_dt, B, C, gy, gstate):
+        size = info.batch_size
+        folded = [None if t is None else _fold(t, d, size)
+                  for t, d in zip((x, a_dt, B, C, gy, gstate), in_dims)]
+        outs = _SSDScanBackward.apply(*folded)
+        return (tuple(t.unflatten(0, (size, -1)) for t in outs),
+                (0, 0, 0, 0))
+
+
 class _SSDScan(torch.autograd.Function):
     """The scan under autograd and ``torch.func``.  The forward is
     ``_scan`` (the kernels on the card); the backward is the
-    vector-Jacobian product of ``ssd_scan_plain`` in fp32, recomputed from
-    the saved inputs by ``torch.func.vjp`` (so ``torch.func.grad`` traces
-    it too), which is what ``jax.grad`` differentiates in the JAX package
-    (``ssd_chunked``: no Pallas kernel there has a backward either).  The
-    inputs are saved as they came, so the head-broadcast views of B and C
-    stay views; their grads come back at the views' shape, and autograd
-    sums them over the heads through the ``expand`` that made the views.
+    vector-Jacobian product of the scan computed from the saved inputs:
+    on the card by the backward kernels (``_SSDScanBackward``; p at most
+    BACKWARD_MAX_P, else ValueError; differentiable once), on the CPU by
+    ``torch.func.vjp`` of ``ssd_scan_plain`` in fp32, which is what
+    ``jax.grad`` differentiates in the JAX package (``ssd_chunked``: no
+    Pallas kernel there has a backward).  The inputs are saved as they
+    came, and B and C's grads come back at their shape: (b, l, g, n)
+    summed over each group's heads, or per head for the head-broadcast
+    views that models/ssm.py passes for one group, which autograd then
+    sums through the ``expand`` that made them.
     All state lives in ``ctx``, so ``torch.utils.checkpoint`` can re-run
     the forward.
 
@@ -291,8 +397,15 @@ class _SSDScan(torch.autograd.Function):
             outs = ssd_scan_plain(*inputs, ctx.chunk, return_state=True)
             return tuple(outs[i] for i in used)
 
-        # registered in tracing.SPANS; opened whether tracing is on or not
+        # the benchmark's readers (tracing.SPANS) keep the span's name, the
+        # kernels' or the plain version's; opened whether tracing is on or not
         with torch.profiler.record_function("ssd_scan_plain_backward"):
+            if _kernel_backward(saved[0]):
+                if gy is None:
+                    gy = torch.zeros_like(saved[0])
+                grads = _SSDScanBackward.apply(*saved, gy, gstate)
+                return (*(t if n else None for t, n in zip(grads, need)),
+                        None, None)
             _, vjp_fn = torch.func.vjp(plain, *(saved[i] for i in wrt))
             grads = iter(vjp_fn(tuple((gy, gstate)[i] for i in used)))
         return (*(next(grads) if n else None for n in need), None, None)
@@ -320,7 +433,8 @@ def ssd_scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
     final state.  On the card n must be at most 128 and the last dimension
     of x, B and C contiguous.  Differentiable: with grad mode on and an
     input that requires grad autograd records ``_SSDScan``, whose
-    backward is the plain version's.  Raises ``TypeError`` on a DTensor
+    backward runs the backward kernels on the card and the plain
+    version's VJP on the CPU.  Raises ``TypeError`` on a DTensor
     (``ssd_scan_sharded`` takes those)."""
     build.refuse_dtensor("ssd_scan", x, a_dt, B, C)
     _check(x, a_dt, B, C, chunk)
@@ -328,6 +442,7 @@ def ssd_scan(x: torch.Tensor, a_dt: torch.Tensor, B: torch.Tensor,
 
 
 ssd_scan.launches = 0
+ssd_scan.backward_launches = 0
 
 
 def ssd_scan_sharded(x: DTensor, a_dt: DTensor, B: DTensor, C: DTensor,

@@ -55,7 +55,10 @@ SPANS: Dict[str, str] = {
     # not tracing is on, since chip_smoke.py profiles it without enabling
     # tracing; it is never kept in memory
     "ssd_scan_plain_backward": "ssd_backward_share.train and "
-                               "chip_smoke.py: the scan's plain backward",
+                               "chip_smoke.py: the scan's backward, the "
+                               "backward kernels on the card (the name is "
+                               "kept for the benchmark's reader), the "
+                               "plain version's VJP on the CPU",
 }
 
 # each counter, and the metric that reads it

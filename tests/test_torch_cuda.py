@@ -491,15 +491,51 @@ def test_checkpoint_of_card_tensors_restores_on_card(tmp_path):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+# The scan's backward kernels against autograd through ssd_scan_plain:
+# fp32 grads within SSD_FP32_TOL of each input's max |grad|; bf16 grads
+# within one bf16 ulp of each element plus SSD_FP32_TOL of the max.  The
+# kernels split every fp32 operand of a product into a bf16 hi and lo pair
+# (a residual of up to 2^-16 of it, lo x lo left out) and sum in their own
+# order: bf16 inputs are exact operands, so their grads are the fp32 VJP
+# rounded once, where the roundings may fall an ulp apart; fp32 inputs are
+# split on load to 16 significant bits, which moves their grads by about
+# 1e-5 of max |grad| (the plain fp32 VJP by about 1e-7): SSD_FP32_TOL holds
+# that, not the fp32 VJP itself.  (tests/test_torch_ssd.py holds a model
+# of the kernels' arithmetic within the same gates.)
+SSD_FP32_TOL = 1e-4
+
+
+def _assert_grads_within_gates(got, want, label, ulps=None):
+    """``ulps``, where given, replaces each element's bf16 ulp in the gate
+    (a sum of rounded grads, below)."""
+    for i, (name, t, w) in enumerate(zip(("x", "a_dt", "B", "C"), got,
+                                         want)):
+        assert t.dtype == w.dtype and t.shape == w.shape, f"{name} {label}"
+        w32 = w.float()
+        scale = float(w32.abs().max())
+        assert scale > 0, f"{name} {label}"
+        ulp = (ulps[i] if ulps is not None and ulps[i] is not None
+               else BF16_ULP * w32.abs())
+        tol = SSD_FP32_TOL * scale + (ulp if w.dtype == torch.bfloat16
+                                      else 0.0)
+        err = (t.float() - w32).abs()
+        assert bool((err <= tol).all()), (
+            f"{name} {label}: off by {float((err / tol).max()):.3g} of the "
+            f"gate")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_grads_match_plain_on_card(dtype):
     """Under autograd the scan's forward launches the kernel and its
-    backward is the plain version's: the grads of x, a_dt and the
-    head-broadcast B/C views' bases (summed over heads by autograd) equal
-    those of autograd through ssd_scan_plain within 1e-5 of each max
-    |grad| (the same fp32 graph on the same inputs), also under
-    torch.utils.checkpoint, which relaunches the kernel."""
+    backward the backward kernels, one launch a backward (the forward's
+    count unchanged by it): the grads of x, a_dt and the head-broadcast
+    B/C views (per head, as the Function returns them) against those of
+    autograd through ssd_scan_plain within the gates above, also under
+    torch.utils.checkpoint, which relaunches the forward kernel.  The
+    views' bases get those per-head grads summed by autograd, each head's
+    rounded on both sides: they are held to the sum over the heads of
+    each head's ulp instead of one ulp of the sum."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     b, l, h, p, n = 2, 300, 4, 64, 64
@@ -513,24 +549,127 @@ def test_ssd_scan_grads_match_plain_on_card(dtype):
         t.requires_grad_(True)
     gy = torch.randn((b, l, h, p), generator=g, device="cuda").to(dtype)
 
-    def scan(fn, x, a, Bb, Cb):
-        return fn(x, a, Bb.expand(b, l, h, n), Cb.expand(b, l, h, n))
+    def views():
+        x, a, Bb, Cb = leaves
+        return [x, a, Bb.expand(b, l, h, n), Cb.expand(b, l, h, n)]
 
-    want = torch.autograd.grad(scan(ssd_scan_plain, *leaves), leaves, gy)
+    def scan(fn, *args):
+        return fn(*args)
+
+    def grads(out, inputs):
+        """The grads of the four inputs (the views), then of the bases."""
+        g = torch.autograd.grad(out, [*inputs, *leaves[2:]], gy)
+        return g[:4], (*g[:2], *g[4:])
+
+    plain = views()
+    want_views, want = grads(ssd_scan_plain(*plain), plain)
+    # each base element sums h rounded per-head grads
+    ulps = [None, None, *(BF16_ULP * w.float().abs().sum(2, keepdim=True)
+                          for w in want_views[2:])]
     for remat in (False, True):
         before = ssd_scan.launches
+        inputs = views()
         y = (torch.utils.checkpoint.checkpoint(
-            scan, ssd_scan, *leaves, use_reentrant=False) if remat
-            else scan(ssd_scan, *leaves))
-        got = torch.autograd.grad(y, leaves, gy)
+            scan, ssd_scan, *inputs, use_reentrant=False) if remat
+            else scan(ssd_scan, *inputs))
+        backward_before = ssd_scan.backward_launches
+        got_views, got = grads(y, inputs)
         torch.cuda.synchronize()
         assert ssd_scan.launches == before + 1 + remat
-        for name, t, w in zip(("x", "a_dt", "B", "C"), got, want):
-            assert t.dtype == w.dtype and t.shape == w.shape
-            scale = float(w.float().abs().max())
-            assert scale > 0
-            torch.testing.assert_close(t, w, rtol=0, atol=1e-5 * scale,
-                                       msg=f"{name} remat {remat}")
+        assert ssd_scan.backward_launches == backward_before + 1
+        _assert_grads_within_gates(got_views, want_views,
+                                   f"remat {remat}, views")
+        _assert_grads_within_gates(got, want, f"remat {remat}, bases", ulps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_grouped_grads_match_plain_on_card(dtype):
+    """Grouped B and C at Nemotron-H's widths (64 heads of 64 in 8 groups,
+    state 128) at a cut length, with and without remat and with the final
+    state's cotangent: the backward kernels' grads (B and C's (b, l, g, n),
+    summed over each group's heads inside the kernels) against autograd
+    through ssd_scan_plain within the gates; one backward launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    b, l, h, p, n, groups = 2, 600, 64, 64, 128, 8
+    g = torch.Generator("cuda").manual_seed(10)
+    leaves = [(torch.randn((b, l, h, p), generator=g, device="cuda")
+               * 0.5).to(dtype),
+              -torch.rand((b, l, h), generator=g, device="cuda") * 0.3,
+              *((torch.randn((b, l, groups, n), generator=g, device="cuda")
+                 * 0.5).to(dtype) for _ in range(2))]
+    for t in leaves:
+        t.requires_grad_(True)
+    gy = torch.randn((b, l, h, p), generator=g, device="cuda").to(dtype)
+    gstate = torch.randn((b, h, p, n), generator=g, device="cuda")
+
+    def scan(fn, *args):
+        return fn(*args, return_state=True)
+
+    want = torch.autograd.grad(scan(ssd_scan_plain, *leaves), leaves,
+                               (gy, gstate))
+    for remat in (False, True):
+        out = (torch.utils.checkpoint.checkpoint(
+            scan, ssd_scan, *leaves, use_reentrant=False) if remat
+            else scan(ssd_scan, *leaves))
+        backward_before = ssd_scan.backward_launches
+        got = torch.autograd.grad(out, leaves, (gy, gstate))
+        torch.cuda.synchronize()
+        assert ssd_scan.backward_launches == backward_before + 1
+        assert got[2].shape == (b, l, groups, n)
+        _assert_grads_within_gates(got, want, f"remat {remat}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_backward_is_deterministic_on_card(dtype):
+    """The backward kernels use no atomics: two backward runs of one graph
+    give the same bits, head-broadcast and grouped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    g = torch.Generator("cuda").manual_seed(11)
+    for b, l, h, p, n, groups in ((2, 700, 8, 64, 128, 1),
+                                  (1, 300, 8, 40, 64, 2)):
+        leaves = [(torch.randn((b, l, h, p), generator=g, device="cuda")
+                   * 0.5).to(dtype),
+                  -torch.rand((b, l, h), generator=g, device="cuda") * 0.3,
+                  *((torch.randn((b, l, groups, n), generator=g,
+                                 device="cuda") * 0.5).to(dtype)
+                    for _ in range(2))]
+        for t in leaves:
+            t.requires_grad_(True)
+        x, a, B, C = leaves
+        if groups == 1:
+            B, C = B.expand(b, l, h, n), C.expand(b, l, h, n)
+        y = ssd_scan(x, a, B, C)
+        gy = torch.randn(y.shape, generator=g, device="cuda").to(dtype)
+        first = torch.autograd.grad(y, leaves, gy, retain_graph=True)
+        second = torch.autograd.grad(y, leaves, gy)
+        for t, u in zip(first, second):
+            assert torch.equal(t, u)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_backward_refuses_wide_heads_on_card():
+    """The forward takes any p on the card, the backward kernels p up to
+    BACKWARD_MAX_P: past it the backward raises ValueError naming the
+    limit, and no plain VJP runs on the card in its place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.kernels.ssd_scan import BACKWARD_MAX_P
+    b, l, h, p, n = 1, 200, 2, 2 * BACKWARD_MAX_P, 64
+    g = torch.Generator("cuda").manual_seed(12)
+    x = torch.randn((b, l, h, p), generator=g, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_(True)
+    a = -torch.rand((b, l, h), generator=g, device="cuda") * 0.3
+    B, C = (torch.randn((b, l, 1, 64), generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    y = ssd_scan(x, a, B, C)
+    before = ssd_scan.backward_launches
+    with pytest.raises(ValueError, match=f"up to {BACKWARD_MAX_P}"):
+        torch.autograd.grad(y.float().sum(), x)
+    assert ssd_scan.backward_launches == before
 
 
 @pytest.mark.cuda
@@ -593,7 +732,8 @@ def test_mamba_train_step_on_card_as_on_cpu():
 def test_executor_step_of_mamba_on_card_matches_plain_scan(monkeypatch):
     """One vectorized-executor step of reduced mamba2-130m (fp32, 4
     clients, federated_pretrain's ModelDef) on the card: the scan in the
-    kernel under its vmap rule, one folded launch a layer, against the
+    kernels under its vmap rules, one folded forward and one folded
+    backward launch a layer, against the
     same step with the scan in ssd_scan_plain under vmap: the losses
     within 1e-5 relative and every leaf's grads within 1e-4 relative L2."""
     if not torch.cuda.is_available():
@@ -620,9 +760,11 @@ def test_executor_step_of_mamba_on_card_matches_plain_scan(monkeypatch):
     m = torch.ones((K, 16), device="cuda")
     step = vmap(grad_and_value(VectorizedExecutor(task)._masked_loss))
     before = ssd_scan.launches
+    backward_before = ssd_scan.backward_launches
     grads, losses = step(stacked, x, y, m)
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + cfg.n_layers
+    assert ssd_scan.backward_launches == backward_before + cfg.n_layers
     monkeypatch.setattr(ssm, "ssd_scan", ssd_scan_plain)
     want_grads, want_losses = step(stacked, x, y, m)
     assert ssd_scan.launches == before + cfg.n_layers

@@ -346,3 +346,285 @@ def test_bf16_kernel_model_within_the_gates(b, l, h, p, n, broadcast):
     assert float((y.float() - pallas).abs().max()) <= y_atol
     y_lo, state_lo = _bf16_kernel_model(*args, split=False)
     assert not _within_gates(y_lo, state_lo, want_y, want_state)
+
+
+# ------------------------------------------------------------ the backward
+# The gates of the backward on the card (test_torch_cuda.py, chip_smoke.py):
+# against the plain version's VJP, fp32 grads within SSD_FP32_TOL of each
+# input's max |grad|; bf16 grads within one bf16 ulp of each element plus
+# SSD_FP32_TOL of the max (bf16 inputs: both sides compute the fp32 VJP
+# to far under a bf16 ulp and round it once, where the roundings may fall
+# an ulp apart; fp32 inputs, split on load to 16 significant bits, err by
+# about 1e-5 of max |grad|, which SSD_FP32_TOL's 1e-4 holds).
+def _parts(t: torch.Tensor, split: bool = True):
+    """An input operand as the backward kernels feed it to the tensor
+    cores: bf16 as it is, fp32 as a hi and lo pair."""
+    t32 = t.float()
+    return _bf16_pair(t32, split) if t.dtype == torch.float32 else (t32,)
+
+
+def _mm(eq: str, a, b):
+    """The sum of the einsum over every pair of parts, lo × lo left out."""
+    out = 0
+    for i, u in enumerate(a):
+        for j, v in enumerate(b):
+            if not (i and j):
+                out = out + torch.einsum(eq, u, v)
+    return out
+
+
+def _backward_kernel_model(x, a_dt, B, C, gy, gstate=None, q: int = TILE,
+                           split: bool = True):
+    """The backward kernels' four passes (csrc/ssd_scan.cu, "Backward") in
+    plain PyTorch at their chunk q: every fp32 operand of a product split
+    into a bf16 pair (fp32 inputs too), sums in fp32, the score decay as
+    2^((a_cum[i] − a_cum[j])·log2 e), each a_cum cotangent gathered as the
+    kernels gather it (rows from pass 3, columns and the chunk's last
+    position from pass 4), da the reverse cumulative sum over the chunk.
+    Returns (dx, da_dt, dB, dC) in the inputs' dtypes, B and C's grads
+    summed over each group's heads before the rounding."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
+    c = -(-l // q)
+    pad = c * q - l
+
+    def padded(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) if pad else t
+    X = _parts(padded(x).reshape(b, c, q, h, p), split)
+    GY = _parts(padded(gy).reshape(b, c, q, h, p), split)
+    Bc = _parts(padded(B.repeat_interleave(r, 2)).reshape(b, c, q, h, n), split)
+    Cc = _parts(padded(C.repeat_interleave(r, 2)).reshape(b, c, q, h, n), split)
+    xs, gys, Cs = sum(X), sum(GY), sum(Cc)
+    af = a_dt.float()
+    if pad:
+        af = torch.nn.functional.pad(af, (0, 0, 0, pad))
+    A = torch.cumsum(af.reshape(b, c, q, h), dim=2)           # (b,c,q,h)
+    d_out = torch.exp(A[:, :, -1:] - A)
+    e_a = torch.exp(A)
+    decay = torch.exp(A[:, :, -1])                            # (b,c,h)
+
+    # pass 1: each chunk's own state and the state cotangent its y gives
+    S = _mm("bcqhp,bcqhn->bchpn", _bf16_pair(xs * d_out[..., None], split),
+            Bc)
+    Gam = _mm("bcqhp,bcqhn->bchpn", _bf16_pair(gys * e_a[..., None], split),
+              Cc)
+    # pass 2: the entering states forward, the handed-on cotangents back
+    state, entering = torch.zeros((b, h, p, n)), []
+    for ci in range(c):
+        entering.append(state)
+        state = state * decay[:, ci, :, None, None] + S[:, ci]
+    entering = torch.stack(entering, dim=1)                   # (b,c,h,p,n)
+    g_out = [None] * c
+    cot = torch.zeros((b, h, p, n)) if gstate is None else gstate.float()
+    for ci in reversed(range(c)):
+        g_out[ci] = cot
+        cot = cot * decay[:, ci, :, None, None] + Gam[:, ci]
+    g_out = torch.stack(g_out, dim=1)
+
+    mask = torch.ones((q, q), dtype=torch.bool).tril()[None, None, :, :, None]
+    seg = A[:, :, :, None, :] - A[:, :, None, :, :]           # (b,c,i,j,h)
+    L = torch.where(mask, torch.exp2(torch.where(mask, seg, 0.0) * LOG2E),
+                    0.0)
+    scores = _mm("bcihn,bcjhn->bcijh", Cc, Bc)
+    gx = _mm("bcihp,bcjhp->bcijh", GY, X)
+    below = torch.ones((q, q), dtype=torch.bool).tril(-1)
+    dseg = torch.where(below[None, None, :, :, None], gx * scores * L, 0.0)
+
+    # pass 3: rows i
+    dC = (_mm("bcihp,bchpn->bcihn", GY, _bf16_pair(entering, split))
+          * e_a[..., None])
+    row = dseg.sum(3) + (Cs * dC).sum(-1)                     # (b,c,i,h)
+    dC = dC + _mm("bcijh,bcjhn->bcihn", _bf16_pair(gx * L, split), Bc)
+    # pass 4: rows j, then da
+    g_pair = _bf16_pair(g_out, split)
+    dx = _mm("bcjhn,bchpn->bcjhp", Bc, g_pair) * d_out[..., None]
+    f = (xs * dx).sum(-1)                                     # (b,c,j,h)
+    dB = _mm("bcjhp,bchpn->bcjhn", X, g_pair) * d_out[..., None]
+    dx = dx + _mm("bcijh,bcihp->bcjhp", _bf16_pair(scores * L, split), GY)
+    dB = dB + _mm("bcijh,bcihn->bcjhn", _bf16_pair(gx * L, split), Cc)
+    dA = row - dseg.sum(2) - f
+    dA[:, :, -1] += f.sum(2) + decay * (g_out * entering).sum((-1, -2))
+    da = dA.flip(2).cumsum(2).flip(2)
+
+    def grouped(t):
+        return t.reshape(b, c * q, g, r, n).sum(3)[:, :l].to(B.dtype)
+    return (dx.reshape(b, c * q, h, p)[:, :l].to(x.dtype),
+            da.reshape(b, c * q, h)[:, :l].to(a_dt.dtype),
+            grouped(dB), grouped(dC))
+
+
+def _within_grad_gates(got, want) -> bool:
+    """The backward's card gates (above) on (dx, da_dt, dB, dC)."""
+    for t, w in zip(got, want):
+        assert t.dtype == w.dtype and t.shape == w.shape
+        w32 = w.float()
+        atol = SSD_FP32_TOL * float(w32.abs().max())
+        tol = atol + (BF16_ULP * w32.abs() if w.dtype == torch.bfloat16
+                      else 0.0)
+        if not bool(((t.float() - w32).abs() <= tol).all()):
+            return False
+    return True
+
+
+def _plain_grads(x, a, B, C, gy, gstate=None):
+    """torch.func.vjp of ssd_scan_plain at the kernels' chunk."""
+    (_, state), vjp = torch.func.vjp(
+        lambda *args: ssd_scan_plain(*args, TILE, return_state=True),
+        x, a, B, C)
+    return vjp((gy, torch.zeros_like(state) if gstate is None else gstate))
+
+
+def _jax_grads(x, a, B, C, gy, gstate=None):
+    """jax.vjp of the JAX package's ssd_chunked in fp32 on the same values
+    (B and C expanded to the heads, their grads summed over each group's
+    heads), at a chunk dividing l, each grad rounded once to its input's
+    dtype."""
+    import jax
+    b, l, h, p = x.shape
+    r = h // B.shape[2]
+    chunk = max(d for d in range(1, TILE + 1) if l % d == 0)
+    chunk = chunk if chunk >= 32 else l
+    arrays = [jnp.asarray(t.float().numpy()) for t in
+              (x, a, B.repeat_interleave(r, 2), C.repeat_interleave(r, 2))]
+    (_, state), vjp = jax.vjp(
+        lambda *args: jax_ssd_chunked(*args, chunk=chunk), *arrays)
+    cot = (np.zeros(state.shape, np.float32) if gstate is None
+           else gstate.numpy())
+    gx, ga, gB, gC = (torch.from_numpy(np.array(t, np.float32)) for t in
+                      vjp((jnp.asarray(gy.float().numpy()),
+                           jnp.asarray(cot))))
+    gB, gC = (t.reshape(b, l, -1, r, t.shape[-1]).sum(3) for t in (gB, gC))
+    return (gx.to(x.dtype), ga.to(a.dtype), gB.to(B.dtype), gC.to(C.dtype))
+
+
+def _backward_inputs(b, l, h, p, n, broadcast, g, dtype, seed):
+    """x, a_dt, B, C (grouped when g, else per head, head-broadcast when
+    broadcast) in dtype, the cotangent gy in dtype and an fp32 gstate."""
+    if g:
+        (x, a, B, C), _ = _grouped(b, l, h, p, n, g, seed)
+    else:
+        x, a, B, C = (torch.from_numpy(t) for t in
+                      _model_inputs(b, l, h, p, n, broadcast, seed))
+    rng = np.random.default_rng(seed + 2)
+    gy = torch.from_numpy(rng.normal(size=(b, l, h, p)).astype(np.float32))
+    gstate = torch.from_numpy(rng.normal(size=(b, h, p, n)).astype(
+        np.float32))
+    return (x.to(dtype), a, B.to(dtype), C.to(dtype), gy.to(dtype)), gstate
+
+
+# (b, l, h, p, n, broadcast, g): MODEL_CASES per head, then grouped B/C
+# at g = 2 and g = h / 2
+BACKWARD_CASES = [(*case, None) for case in MODEL_CASES] + [
+    (2, 200, 4, 16, 8, False, 2), (1, 300, 6, 40, 100, False, 3),
+    (1, 257, 8, 16, 36, False, 2), (1, 129, 8, 16, 8, False, 4)]
+
+
+@pytest.mark.parametrize("with_gstate", [False, True])
+@pytest.mark.parametrize("b,l,h,p,n,broadcast,g", BACKWARD_CASES)
+def test_backward_kernel_model_within_the_grad_gates(b, l, h, p, n,
+                                                     broadcast, g,
+                                                     with_gstate):
+    """The model of the backward kernels' arithmetic, bf16 inputs, against
+    torch.func.vjp of ssd_scan_plain and jax.vjp of the JAX package's
+    ssd_chunked, within the card's grad gates, with the final state's
+    cotangent given or not; grouped B and C get (b, l, g, n) grads."""
+    (x, a, B, C, gy), gstate = _backward_inputs(
+        b, l, h, p, n, broadcast, g, torch.bfloat16, seed=5 * l + n)
+    gstate = gstate if with_gstate else None
+    got = _backward_kernel_model(x, a, B, C, gy, gstate)
+    assert got[2].shape == B.shape and got[3].shape == C.shape
+    assert _within_grad_gates(got, _plain_grads(x, a, B, C, gy, gstate))
+    assert _within_grad_gates(got, _jax_grads(x, a, B, C, gy, gstate))
+
+
+@pytest.mark.parametrize("b,l,h,p,n,broadcast,g", [
+    (2, 200, 3, 40, 100, False, None), (1, 300, 6, 40, 100, False, 3)])
+def test_backward_kernel_model_in_fp32_within_the_grad_gates(b, l, h, p, n,
+                                                             broadcast, g):
+    """fp32 inputs through the same passes, x, B, C and gy split on load
+    as well: within SSD_FP32_TOL of each max |grad| of the plain VJP."""
+    (x, a, B, C, gy), gstate = _backward_inputs(
+        b, l, h, p, n, broadcast, g, torch.float32, seed=l + n)
+    got = _backward_kernel_model(x, a, B, C, gy, gstate)
+    assert _within_grad_gates(got, _plain_grads(x, a, B, C, gy, gstate))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,l,h,p,n,broadcast,g", [
+    (2, 200, 3, 40, 100, False, None), (1, 257, 8, 16, 36, False, 2)])
+def test_backward_kernel_model_without_lo_halves_leaves_the_gates(
+        b, l, h, p, n, broadcast, g, dtype):
+    """The same model with the lo halves dropped (every fp32 operand a
+    single bf16) falls outside the grad gates: the splits are what hold
+    the products to fp32's precision."""
+    (x, a, B, C, gy), gstate = _backward_inputs(
+        b, l, h, p, n, broadcast, g, dtype, seed=3 * l + n)
+    got = _backward_kernel_model(x, a, B, C, gy, gstate, split=False)
+    assert not _within_grad_gates(got, _plain_grads(x, a, B, C, gy, gstate))
+
+
+@pytest.mark.parametrize("p_past", [1, 64])
+def test_card_backward_refuses_head_dims_past_its_tile(monkeypatch, p_past):
+    """The card's backward takes p up to BACKWARD_MAX_P (one tile): on its
+    path (``_kernel_backward``, forced here on the CPU) a larger p raises
+    ValueError naming the limit before any launch, with no plain VJP
+    standing in; the CPU's own path differentiates any p."""
+    import importlib
+    module = importlib.import_module("repro_torch.kernels.ssd_scan")
+    b, l, h, n = 1, 20, 2, 8
+    p = module.BACKWARD_MAX_P + p_past
+    gen = torch.Generator().manual_seed(p)
+    x = torch.randn((b, l, h, p), generator=gen, requires_grad=True)
+    a = -torch.rand((b, l, h), generator=gen)
+    B, C = (torch.randn((b, l, 1, n), generator=gen) for _ in range(2))
+    y = ssd_scan(x, a, B, C)
+    (dx,) = torch.autograd.grad(y.sum(), x, retain_graph=True)
+    assert dx.shape == x.shape and bool(torch.isfinite(dx).all())
+    monkeypatch.setattr(module, "_kernel_backward", lambda t: True)
+    launches = ssd_scan.backward_launches
+    with pytest.raises(ValueError, match=f"up to {module.BACKWARD_MAX_P}, "
+                                         f"got {p}"):
+        torch.autograd.grad(y.sum(), x)
+    assert ssd_scan.backward_launches == launches
+
+
+def test_kernel_backward_path_folds_under_vmap(monkeypatch):
+    """The path the card takes under autograd (``_SSDScanBackward``), on
+    the CPU with the model standing in for the kernels: one call a
+    backward, inside the ``ssd_scan_plain_backward`` span; under
+    vmap(grad) one folded call, equal to the calls one by one, and within
+    the grad gates of the plain version's."""
+    import importlib
+
+    from torch.func import grad, vmap
+    module = importlib.import_module("repro_torch.kernels.ssd_scan")
+    calls = []
+
+    def kernels(*args):
+        calls.append(tuple(args[0].shape))
+        return _backward_kernel_model(*args)
+    monkeypatch.setattr(module, "_kernel_backward", lambda x: True)
+    monkeypatch.setattr(module, "_scan_backward", kernels)
+    grouped, _ = _grouped(3, 140, 4, 8, 8, 2, seed=12)
+
+    def loss(x, a, B, C):
+        y, state = ssd_scan(x[None], a[None], B[None], C[None],
+                            return_state=True)
+        return y.sum() + (state * state).sum()
+
+    argnums = (0, 1, 2, 3)
+    got = vmap(grad(loss, argnums=argnums))(*grouped)
+    assert calls == [(3, 140, 4, 8)]
+    with torch.profiler.profile() as prof:
+        want = grad(loss, argnums=argnums)(*(t[0] for t in grouped))
+    assert len(calls) == 2
+    assert any(e.name == "ssd_scan_plain_backward" for e in prof.events())
+    monkeypatch.undo()
+    for i in range(3):
+        one = grad(loss, argnums=argnums)(*(t[i] for t in grouped))
+        if i == 0:
+            for t, w in zip(want, one):
+                assert _within_grad_gates((t,), (w,))
+        for t, w in zip(got, one):
+            assert _within_grad_gates((t[i],), (w,))
